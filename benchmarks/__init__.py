@@ -1,2 +1,2 @@
-"""Benchmark & driver programs — the TPU build of the reference's
+"""Benchmark & driver programs — the accelerator build of the reference's
 tests/ programs (SURVEY §4) plus the BASELINE.md configs."""

@@ -1,14 +1,14 @@
-"""gmres_tpu — a TPU-native Krylov-subspace solver library in JAX.
+"""gmres_tpu — a Krylov-subspace solver library in JAX for GPUs.
 
 A from-scratch re-design (not a port) of the capabilities of the reference
 Fortran+OpenMP library AlexanderGSC/gmres (see /root/reference):
 
 * Restarted GMRES(m) with two Arnoldi variants:
   - Householder reflectors (Walker '84), here in *compact-WY* form so that
-    reflector sweeps are matmuls on the MXU with a single all-reduce
+    reflector sweeps are matmuls with a single all-reduce
     (reference: ``src/gmres_hh.f90``).
   - Modified Gram-Schmidt with re-orthogonalization (MGS2), plus a
-    TPU-fast CGS2 mode (reference: ``src/gmres_mgsr.f90``).
+    fast CGS2 mode (reference: ``src/gmres_mgsr.f90``).
 * CG / PCG (reference: ``src/cg.f90``), plus a pipelined
   (Ghysels-Vanroose) variant with one fused all-reduce per iteration.
 * BiCGSTAB / PBiCGSTAB (reference: ``src/bicgstab.f90``).

@@ -96,12 +96,9 @@ def helmholtz_split_operator(
     nsize: int, kh2: float = 0.5, damping: float = 0.0
 ) -> Callable:
     """SPLIT-COMPLEX Helmholtz operator: the complex field u = uʳ + i·uⁱ
-    carried as a STACKED REAL array (2, N, N) — the TPU-native complex
-    representation. This v5e runtime has NO complex datapath at all
-    (measured, round 4: c128 fails to COMPILE — "Element type C128 is
-    not supported" — and every c64 op fails at RUN time with
-    UNIMPLEMENTED, including add), so the complex Helmholtz class runs
-    on TPU through the real-equivalent formulation
+    carried as a STACKED REAL array (2, N, N), for runtimes without a
+    complex datapath: the complex Helmholtz class runs there through
+    the real-equivalent formulation
 
         (A + iB)(uʳ + i·uⁱ) = b  ⇔  [A −B; B A][uʳ; uⁱ] = [bʳ; bⁱ],
 
@@ -109,8 +106,8 @@ def helmholtz_split_operator(
     the 2×2 rotation of the center term. Spectrum {λ, λ̄} — GMRES on
     the real form converges like the complex solve (conjugate pairs
     were already present in the complex nonsymmetric spectrum) — and
-    the arithmetic is plain f32/f64, so the TPU rows can run at f64
-    tolerances no c64 path could reach. The (2, N, N) stack is an
+    the arithmetic is plain f32/f64, so it reaches f64 tolerances no
+    c64 path could. The (2, N, N) stack is an
     ordinary vector to every solver (their dots/norms are exactly the
     real and imaginary parts' joint 2-norm = the complex 2-norm).
 

@@ -8,9 +8,8 @@ poisson.f90:9-10) and the hand-optimized matrix-free stencil ``stvec``
 OpenMP loops. In JAX the whole stencil is one fused elementwise
 expression over the (N, N) grid — XLA performs the interior/boundary
 specialization, and under a sharded-input ``jit`` the row shifts become
-ICI collective-permutes (the halo exchange). A Pallas kernel for the
-same stencil lives in ``gmres_tpu.ops.stencil``; an explicit
-``shard_map`` + halo-exchange version in ``gmres_tpu.parallel.halo``.
+collective-permutes (the halo exchange). An explicit ``shard_map`` +
+halo-exchange version lives in ``gmres_tpu.parallel.halo``.
 
 Index-ordering note: the reference flattens the grid column-major
 (idx = i + (j-1)·N). We operate on (N, N) arrays directly (C-order when
@@ -69,11 +68,11 @@ def tuned_poisson_preconditioner(
     """Deep Chebyshev preconditioner auto-sized for an nsize×nsize
     Poisson grid — the tuned-headline recipe made grid-independent.
 
-    Measured rule (TPU v5e; see docs/DESIGN.md): target the Chebyshev
-    interval at lo ≈ aggressiveness·λ_min (leaving only a handful of
-    low modes for the Krylov iteration) with order ≈ 1.6·√(λ_max/lo),
-    which drives the iteration count to a few dozen regardless of N.
-    Returns (M, order, lo, hi).
+    Rule: target the Chebyshev interval at lo ≈ aggressiveness·λ_min
+    (leaving only a handful of low modes for the Krylov iteration) with
+    order ≈ 1.6·√(λ_max/lo), which drives the iteration count to a few
+    dozen regardless of N. ``use_pallas`` as in
+    ``chebyshev_stencil_preconditioner``. Returns (M, order, lo, hi).
     """
     import math
 

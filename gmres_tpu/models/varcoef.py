@@ -15,7 +15,7 @@ roundoff in tests/test_varcoef.py; summation order differs). Dirichlet boundarie
 coefficient is the cell's own c (harm(c, c) = c), matching the unit
 stencil's boundary row.
 
-TPU shape: the operator is four shifted multiplies over materialized
+Device shape: the operator is four shifted multiplies over materialized
 face-coefficient arrays — same memory traffic class as the constant
 stencil (5 reads, 1 write vs 2/1; XLA fuses the axpys), shards by
 grid rows like every other stencil here, and the coefficient arrays

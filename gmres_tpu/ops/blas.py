@@ -19,19 +19,12 @@ import jax
 import jax.numpy as jnp
 
 
-def _fused_reduce_dot(dtype) -> bool:
-    """True when a basis contraction should use the fused
-    multiply+reduce formulation instead of ``tensordot``.
-
-    XLA:TPU lowers an f64 ``dot`` to an emulated-multiply kernel
-    measured at ~12 GB/s — 1.5% of v5e HBM peak (5.8 ms for a
-    (51, 90000)×(90000,) GEMV, experiments/prof_refcfg.py). The SAME
-    contraction written as elementwise multiply + ``reduce`` fuses into
-    one HBM pass at ~250-500 GB/s: 24× (contract) / 47× (expand) faster
-    (experiments/prof_f64_contract.py). f32/bf16 dots ride the MXU and
-    CPU f64 dots ride BLAS, so only TPU+f64 takes the fused route —
-    same FLOPs, an XLA reduction in either case (comparable rounding)."""
-    return dtype == jnp.float64 and jax.default_backend() == "tpu"
+# Basis contractions pin Precision.HIGHEST. On the GPU an f32 dot may
+# otherwise run in TF32 (about three decimal digits). These are
+# memory-bound GEMVs over the Krylov basis, so TF32 buys no speed, and
+# in the f32 Arnoldi of GMRES-IR it can cost orthogonality and, with
+# it, restarts. f64 and complex dots are unaffected.
+_PRECISION = jax.lax.Precision.HIGHEST
 
 
 def row_contract(rows: jnp.ndarray, v: jnp.ndarray,
@@ -40,30 +33,18 @@ def row_contract(rows: jnp.ndarray, v: jnp.ndarray,
 
     The distributed analogue of the reference's per-row OpenMP dot
     reductions (gmres_hh.f90:453-485): one local reduce + one psum
-    under GSPMD. Routed per `_fused_reduce_dot` (TPU f64 pathology)."""
+    under GSPMD."""
     r = jnp.conj(rows) if conj else rows
-    if _fused_reduce_dot(rows.dtype):
-        return jnp.sum(
-            r * v[None], axis=tuple(range(1, rows.ndim))
-        )
     axes = list(range(1, rows.ndim))
-    return jnp.tensordot(r, v, axes=(axes, list(range(v.ndim))))
+    return jnp.tensordot(r, v, axes=(axes, list(range(v.ndim))),
+                         precision=_PRECISION)
 
 
 def row_combine(coefs: jnp.ndarray, rows: jnp.ndarray) -> jnp.ndarray:
     """Linear combination (R, *extra) × (R, *shape) → (*extra, *shape):
     out[e] = Σᵢ coefs[i, e]·rowsᵢ (communication-free under row
-    sharding; `tensordot(coefs, rows, axes=(0, 0))` semantics). Routed
-    like `row_contract`."""
-    if _fused_reduce_dot(rows.dtype):
-        c = coefs.astype(rows.dtype).reshape(
-            coefs.shape + (1,) * (rows.ndim - 1)
-        )
-        r = rows.reshape(
-            rows.shape[:1] + (1,) * (coefs.ndim - 1) + rows.shape[1:]
-        )
-        return jnp.sum(c * r, axis=0)
-    return jnp.tensordot(coefs, rows, axes=(0, 0))
+    sharding; `tensordot(coefs, rows, axes=(0, 0))` semantics)."""
+    return jnp.tensordot(coefs, rows, axes=(0, 0), precision=_PRECISION)
 
 
 def tree_vdot(a: Any, b: Any) -> jnp.ndarray:

@@ -3,7 +3,7 @@
 The Householder GMRES variant (Walker '84) manipulates individual
 components and prefixes/suffixes of vectors *in flat ordering* — e.g.
 ``w(1:j)=0``, ``w(j+1) -= H(j+1,j)`` (reference src/gmres_hh.f90:487-502).
-On TPU, vectors stay in their natural (possibly sharded) N-D shape, so
+On the device, vectors stay in their natural (possibly sharded) N-D shape, so
 these component operations are expressed as elementwise masks against a
 C-order flat-index iota. Every op here is sharding-transparent: masks
 are elementwise, and the single-element reads reduce with ``jnp.sum``

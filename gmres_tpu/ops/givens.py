@@ -4,7 +4,7 @@ The reference applies the stored rotation sequence cs/sn to each new
 Hessenberg column with a sequential loop (gmres_hh.f90:68-84,
 gmres_mgsr.f90:52-67), then generates one new rotation via ``hypot`` and
 rotates the rhs ``g``. A sequential O(j) scalar loop is poison inside a
-TPU ``while_loop``, so here the *accumulated* rotation product is kept
+device ``while_loop``, so here the *accumulated* rotation product is kept
 as a small dense orthogonal matrix Ω (m+1, m+1): applying all previous
 rotations to a new column is one replicated (m+1)² matvec (fully
 vectorized, identical rotations → identical values up to summation

@@ -5,14 +5,14 @@ dot/axpy sweep — 2j dot products (→ 2j all-reduces when distributed)
 per Arnoldi step (gmres_hh.f90:453-485). That is the core performance
 problem of Householder GMRES on a mesh (SURVEY §3.1).
 
-TPU-native answer: keep the accumulated product in compact-WY form
+The answer here: keep the accumulated product in compact-WY form
 
     Q_k = (I − 2p₁p₁ᵀ)···(I − 2p_kp_kᵀ) = I − Pᵀ T P
 
 with P (m+1, n) holding reflector rows and T (m+1, m+1) upper
 triangular (LAPACK's blocked-Householder representation). Then
 
-    Q v  = v − Pᵀ (T  (P v))     — two (m+1)×n matmuls (MXU) and ONE
+    Q v  = v − Pᵀ (T  (P v))     — two (m+1)×n matmuls and ONE
     Qᵀ v = v − Pᵀ (Tᵀ (P v))       all-reduce of an (m+1,) vector,
 
 independent of j. Zero rows of P and zero rows/cols of T make the
@@ -36,9 +36,8 @@ from gmres_tpu.ops.blas import row_combine, row_contract
 
 
 def _contract(p: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarray:
-    """(m+1, *shape) × (*shape) → (m+1,): P v (one all-reduce).
-    TPU f64 takes the fused multiply+reduce route (ops/blas.py
-    `row_contract`) — the tensordot lowering runs at 1.5% of HBM peak."""
+    """(m+1, *shape) × (*shape) → (m+1,): P v (one all-reduce,
+    ops/blas.py `row_contract`)."""
     return row_contract(p, v)
 
 
@@ -64,12 +63,10 @@ def wy_basis_vector(p: jnp.ndarray, t: jnp.ndarray, idx) -> jnp.ndarray:
 
     Formulated as the one-hot application Q e = e − Pᵀ(T (P e)): the
     contraction P e is mathematically just column idx of P, but
-    READING that column directly is a TPU anti-pattern — both
-    flatten-then-slice (forces a full tiled-layout relayout of the
-    basis: +2.6 ms/iter at 2048² f32) and N-D `dynamic_slice` with
-    runtime starts (+21 ms/iter at 2048²) measured far slower than the
-    masked contraction, which streams P once at full bandwidth
-    (`row_contract` routes TPU f64 around the slow dot lowering). The
+    READING that column directly forces either a flatten-then-slice
+    relayout of the basis or an N-D `dynamic_slice` with runtime
+    starts; the masked contraction streams P once at full bandwidth
+    instead (neither form has been timed on the GPU). The
     reference reads the same column implicitly through its reflector
     sweep (gmres_hh.f90:453-467)."""
     from gmres_tpu.ops.flat import flat_iota

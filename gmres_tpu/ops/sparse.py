@@ -1,37 +1,25 @@
-"""Sparse-matrix formats and SpMV for TPU.
+"""Sparse-matrix formats and SpMV.
 
 The reference has **no** sparse-matrix code at all — its only operator
 paths are the dense Fortran ``matmul`` (gmres_hh.f90:37,48) and the
 hand-written 5-point stencil (poisson.f90:33-77); SURVEY §2 C13 notes
 that CSR/COO SpMV is a build requirement beyond the reference
-(BASELINE.json north star). These are ground-up TPU designs:
+(BASELINE.json north star).
 
-* **ELL (ELLPACK)** is the TPU-native general format: every row stores a
-  fixed ``k = max nnz/row`` of (value, column) pairs, padded with zeros.
-  Static shapes, one XLA gather + one dense reduction — no
-  data-dependent control flow, fully fusible, shards by rows.
+* **ELL (ELLPACK)**: every row stores a fixed ``k = max nnz/row`` of
+  (value, column) pairs, padded with zeros. Static shapes, one XLA
+  gather + one dense reduction — no data-dependent control flow, fully
+  fusible, shards by rows.
 * **CSR** / **COO** use XLA ``segment_sum`` (sorted segments) — kept for
   interop and for matrices whose row occupancy is too skewed for ELL.
-* **BSR (block-sparse rows)** with dense (bs × bs) blocks is the format
-  that actually feeds the MXU; its SpMV is a Pallas kernel
-  (``bsr_spmv_pallas``) that scalar-prefetches the block-column indices
-  so the x-block DMA for step j+1 is issued while block j multiplies.
-* **HYB = DIA + ELL residue** (``csr_to_hyb``) is the performance
-  answer for general matrices. Measured on TPU v5e: XLA's gather runs
-  at SCALAR rate (~0.15 Gnnz/s — one element per ~7 ns), while the
-  shift-based DIA path hits ~19 Gnnz/s jnp and more in Pallas. Random
-  access is simply not a TPU primitive, so the kernel-level move is to
-  RESTRUCTURE: extract every well-occupied (generalized) diagonal into
-  DIA — vector shifts, no gathers — and leave only the stragglers in a
-  small-k gather ELL. PDE discretizations, banded systems, and
-  reordered (RCM) meshes are near-100% diagonal; fully random matrices
-  degrade gracefully to the gather path.
-* **``dia_spmv_pallas``** is the Pallas DIA kernel: x lives in VMEM as
-  a (rows, 128) tile; a flat shift by ``off = q·128 + r`` becomes a
-  STATIC row shift by q plus a lane rotation by r (two static slices +
-  one concat), so every diagonal is pure VPU fma traffic. Offsets are
-  compile-time metadata — no scalar prefetch anywhere (which also
-  sidesteps the Mosaic x64 scalar-prefetch crash, CLAUDE.md rule 3).
+* **BSR (block-sparse rows)** with dense (bs × bs) blocks: a gather of x
+  blocks and one batched block matvec.
+* **HYB = DIA + ELL residue** (``csr_to_hyb``): every well-occupied
+  (generalized) diagonal goes into DIA — vector shifts, no gathers —
+  and only the stragglers stay in a small-k gather ELL. PDE
+  discretizations, banded systems, and reordered (RCM) meshes are
+  near-100% diagonal; fully random matrices degrade gracefully to the
+  gather path.
 
 All containers are registered pytrees, so a sparse matrix can close
 over a ``LinearOperator`` and flow through ``jit`` untouched.
@@ -46,8 +34,6 @@ from typing import Callable
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 
 def _register(cls, data_fields, meta_fields):
@@ -118,7 +104,7 @@ class ELLMatrix:
 class DIAMatrix:
     """Diagonal format: data (ndiags, n) holds each diagonal aligned to
     ROW index (data[k, i] = A[i, i + offsets[k]], zero where out of
-    range). The TPU-native format for banded matrices (every stencil
+    range). The format for banded matrices (every stencil
     discretization): SpMV is a shift + multiply per diagonal — no
     gathers, no segments, fully vectorizable, shards by rows."""
 
@@ -458,13 +444,13 @@ def coo_spmv(a: COOMatrix, x: jnp.ndarray) -> jnp.ndarray:
 
 def ell_spmv(a: ELLMatrix, x: jnp.ndarray) -> jnp.ndarray:
     """y = A x: one gather (nrows, k) + one dense row reduction.
-    The TPU-native general SpMV — everything static, no segments."""
+    The general SpMV — everything static, no segments."""
     return jnp.sum(a.data * x.reshape(-1)[a.cols], axis=1)
 
 
 def bsr_spmv(a: BSRMatrix, x: jnp.ndarray) -> jnp.ndarray:
     """jnp reference path for BSR: gather x blocks, batched block
-    matvec (einsum → MXU), row-sum."""
+    matvec (einsum), row-sum."""
     bs = a.block_size
     xb = x.reshape(-1, bs)  # (n_block_cols, bs)
     gathered = xb[a.block_cols]  # (nbr, k, bs)
@@ -474,215 +460,10 @@ def bsr_spmv(a: BSRMatrix, x: jnp.ndarray) -> jnp.ndarray:
     ).reshape(-1)
 
 
-# ---------------------------------------------------------------------------
-# Pallas BSR SpMV.
-#
-# Grid (n_block_rows, k): step (i, j) multiplies dense block (i, j)
-# against the x block selected by block_cols[i, j]. block_cols is a
-# scalar-prefetch operand, so its value drives the x BlockSpec index
-# map — Pallas double-buffers the x-block DMA against the previous
-# step's MXU work automatically.
-# ---------------------------------------------------------------------------
-
-
-def _bsr_kernel(cols_ref, d_ref, x_ref, o_ref):
-    j = pl.program_id(1)
-
-    @pl.when(j == 0)
-    def _():
-        o_ref[:] = jnp.zeros_like(o_ref)
-
-    # HIGHEST precision: the MXU's default f32 path multiplies in
-    # bf16 (measured ~2.5e-3 relative error on this kernel).
-    o_ref[:] += jax.lax.dot_general(
-        x_ref[:], d_ref[0, 0],
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=o_ref.dtype,
-        precision=jax.lax.Precision.HIGHEST,
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def bsr_spmv_pallas(
-    a: BSRMatrix, x: jnp.ndarray, interpret: bool = False
-) -> jnp.ndarray:
-    """Pallas TPU BSR SpMV. float32/bfloat16 blocks; block_size should
-    be a multiple of the lane width (128) for full MXU tiles.
-
-    Traced with x64 disabled: scalar-prefetch grid specs crash the
-    Mosaic compiler under jax_enable_x64 (observed on v5e/JAX 0.9);
-    every operand here is 32-bit, so the trace is identical.
-    """
-    with jax.enable_x64(False):
-        return _bsr_spmv_pallas_impl(a, x, interpret)
-
-
-def _bsr_spmv_pallas_impl(
-    a: BSRMatrix, x: jnp.ndarray, interpret: bool
-) -> jnp.ndarray:
-    nbr, k, bs, _ = a.data.shape
-    xb = x.reshape(1, -1)  # (1, n) → blocks of (1, bs)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(nbr, k),
-        in_specs=[
-            pl.BlockSpec(
-                (1, 1, bs, bs),
-                lambda i, j, cols: (i, j, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (1, bs),
-                lambda i, j, cols: (0, cols[i, j]),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (1, bs), lambda i, j, cols: (0, i), memory_space=pltpu.VMEM
-        ),
-    )
-    out = pl.pallas_call(
-        _bsr_kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((1, nbr * bs), x.dtype),
-        interpret=interpret,
-    )(a.block_cols, a.data, xb)
-    return out.reshape(-1)
-
-
-# ---------------------------------------------------------------------------
-# Pallas DIA SpMV.
-#
-# A flat shift by off = q·128 + r on the (rows, 128) VMEM view of x is
-# a STATIC row shift by q plus a lane rotation by r — two slices and a
-# concat, no gathers, no scalar prefetch (offsets are compile-time
-# metadata). Grid over row blocks of R·128 elements; each step sees the
-# previous/current/next x blocks (halo windows, BlockSpec-clamped at
-# the edges — any clamped read corresponds to an out-of-matrix position
-# whose DIA coefficient is zero by construction, so it never
-# contributes).
-# ---------------------------------------------------------------------------
-
-
-def _dia_kernel(offsets: tuple, rows: int):
-    R = rows
-
-    def kernel(d_ref, xp_ref, xc_ref, xn_ref, o_ref):
-        w = jnp.concatenate([xp_ref[:], xc_ref[:], xn_ref[:]], axis=0)
-        lane = jax.lax.broadcasted_iota(jnp.int32, (R, 128), 1)
-        acc = jnp.zeros_like(o_ref)
-        for k, off in enumerate(offsets):
-            q, r = divmod(off, 128)
-            a = w[R + q: 2 * R + q]
-            if r == 0:
-                s = a
-            else:
-                # Lane shift by r with carry-in from the next row:
-                # Mosaic rejects misaligned lane concatenation, so use
-                # a circular lane roll on both rows and a lane-indexed
-                # select for the wrap region instead.
-                b = w[R + q + 1: 2 * R + q + 1]
-                ar = pltpu.roll(a, 128 - r, 1)  # left-rotate by r
-                br = pltpu.roll(b, 128 - r, 1)
-                s = jnp.where(lane < 128 - r, ar, br)
-            acc = acc + d_ref[k] * s
-        o_ref[:] = acc
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("interpret", "block_rows"))
-def dia_spmv_pallas(
-    a: DIAMatrix,
-    x: jnp.ndarray,
-    interpret: bool = False,
-    block_rows: int | None = None,
-) -> jnp.ndarray:
-    """Pallas TPU DIA SpMV (see section comment). float32/bfloat16 on
-    real TPUs (Mosaic has no f64 vector path); any dtype in interpret
-    mode. Requires max |offset| < rows·128 per block — the row-block
-    size auto-grows to cover the widest diagonal; ``block_rows``
-    overrides it upward (bigger blocks amortize the per-step halo
-    window reads on large n).
-
-    The compiled path is traced with x64 disabled: under
-    jax_enable_x64 the ``pltpu.roll`` shift literal traces as i64,
-    which Mosaic's tpu.dynamic_rotate rejects. Interpret mode keeps
-    the caller's x64 setting (f64 test oracles need it; there is no
-    Mosaic involved)."""
-    if interpret:
-        return _dia_spmv_pallas_impl(a, x, interpret, block_rows)
-    with jax.enable_x64(False):
-        return _dia_spmv_pallas_impl(a, x, interpret, block_rows)
-
-
-def _dia_spmv_pallas_impl(
-    a: DIAMatrix, x: jnp.ndarray, interpret: bool,
-    block_rows: int | None = None,
-) -> jnp.ndarray:
-    n = a.shape[0]
-    offsets = tuple(int(o) for o in a.offsets)
-    ndiags = len(offsets)
-    max_q = max(abs(o) // 128 + 1 for o in offsets)
-    rows = max(32, 8 * ((max_q + 8) // 8))
-    if block_rows is None:
-        # Measured sweet spot (TPU v5e, 1024² Poisson DIA): 64-row
-        # blocks beat 32 by 1.3× (fewer halo-window re-reads) and 256
-        # by 1.1× (better grid pipelining); don't exceed the vector.
-        rows = max(rows, min(64, 8 * (-(-n // (128 * 8)))))
-    else:
-        rows = max(rows, 8 * ((block_rows + 7) // 8))
-    block = rows * 128
-    nblocks = max(1, -(-n // block))
-    npad = nblocks * block
-    xf = jnp.zeros((npad,), x.dtype).at[:n].set(x.reshape(-1))
-    x2 = xf.reshape(nblocks * rows, 128)
-    d = jnp.zeros((ndiags, npad), a.data.dtype).at[:, :n].set(a.data)
-    d3 = d.reshape(ndiags, nblocks * rows, 128)
-    last = nblocks - 1
-
-    out = pl.pallas_call(
-        _dia_kernel(offsets, rows),
-        grid=(nblocks,),
-        in_specs=[
-            pl.BlockSpec(
-                (ndiags, rows, 128), lambda i: (0, i, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (rows, 128), lambda i: (jnp.maximum(i - 1, 0), 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (rows, 128), lambda i: (i, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (rows, 128), lambda i: (jnp.minimum(i + 1, last), 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (rows, 128), lambda i: (i, 0), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((nblocks * rows, 128), x.dtype),
-        interpret=interpret,
-    )(d3, x2, x2, x2)
-    return out.reshape(-1)[:n]
-
-
-def hyb_spmv(
-    a: HYBMatrix,
-    x: jnp.ndarray,
-    use_pallas: bool = False,
-    interpret: bool = False,
-) -> jnp.ndarray:
-    """y = A x for the hybrid format: shift-based DIA part (+ Pallas
-    kernel when requested) plus the gather-ELL residue (empty for
-    structured matrices)."""
-    if use_pallas:
-        y = dia_spmv_pallas(a.dia, x, interpret=interpret)
-    else:
-        y = dia_spmv(a.dia, x)
+def hyb_spmv(a: HYBMatrix, x: jnp.ndarray) -> jnp.ndarray:
+    """y = A x for the hybrid format: shift-based DIA part plus the
+    gather-ELL residue (empty for structured matrices)."""
+    y = dia_spmv(a.dia, x)
     if a.ell is not None:
         y = y + ell_spmv(a.ell, x)
     return y
@@ -713,11 +494,10 @@ def bsr_from_dense(a, block_size: int, tol: float = 0.0) -> BSRMatrix:
 # ---------------------------------------------------------------------------
 
 
-def sparse_operator(a, use_pallas: bool = False) -> Callable:
+def sparse_operator(a) -> Callable:
     """Wrap any sparse container as a LinearOperator closure (the
     same inversion-of-control contract as the stencil operators,
-    interfaces.f90:12-18). ``use_pallas`` routes DIA/HYB through the
-    Pallas DIA kernel (f32, single shard)."""
+    interfaces.f90:12-18)."""
     if isinstance(a, CSRMatrix):
         rows = csr_row_ids(a)
         return lambda x: csr_spmv(a, x, rows=rows)
@@ -728,9 +508,7 @@ def sparse_operator(a, use_pallas: bool = False) -> Callable:
     if isinstance(a, BSRMatrix):
         return lambda x: bsr_spmv(a, x)
     if isinstance(a, HYBMatrix):
-        return lambda x: hyb_spmv(a, x, use_pallas=use_pallas)
+        return lambda x: hyb_spmv(a, x)
     if isinstance(a, DIAMatrix):
-        if use_pallas:
-            return lambda x: dia_spmv_pallas(a, x)
         return lambda x: dia_spmv(a, x)
     raise TypeError(f"not a sparse matrix: {type(a)}")

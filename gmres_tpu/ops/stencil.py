@@ -8,10 +8,10 @@ Implementations:
   exchanges automatically.
 * ``stencil_5pt_halo`` — jnp local stencil taking explicit one-row halos
   (used by the shard_map path in ``gmres_tpu.parallel.halo``).
-* ``stencil_5pt_pallas`` / ``stencil_5pt_pallas_halo`` — Pallas TPU
-  kernels operating on a block resident in VMEM (the per-chip shard of a
-  distributed grid, or the whole grid when it fits). float32: Mosaic has
-  no f64 vector path, so f64 stays on the jnp/XLA route.
+
+One sweep must read x and write y once; XLA:GPU's loop fusion does
+exactly that, so there is no hand-written single-sweep kernel. Several
+sweeps fuse in ``ops/smoother.py``.
 
 Reference: ``src/problems/poisson.f90:33-77`` (stvec) — its interior /
 edge / corner OpenMP loop split is the serial shadow of this halo
@@ -22,19 +22,15 @@ north) also serve the convection-diffusion operator
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 
 def _shift(x: jnp.ndarray, dr: int, dc: int) -> jnp.ndarray:
     """x shifted by (dr, dc) with zero fill (Dirichlet truncation).
 
     Implemented as roll + boundary mask rather than pad + slice: roll
-    keeps the array shape, so under a sharded input it lowers to an ICI
+    keeps the array shape, so under a sharded input it lowers to a
     collective-permute of the boundary rows (the halo exchange), while
     pad would change the sharded dimension size (unsupported)."""
 
@@ -119,7 +115,7 @@ def stencil_5pt_halo(
     ``bottom`` the row below; pass zeros at the physical boundary.
     Used by the distributed row-partitioned operator
     (parallel/halo.py) — the reference's interior/edge split
-    (poisson.f90:38-67) done across chips instead of loops.
+    (poisson.f90:38-67) done across devices instead of loops.
     """
     c0, cw, ce, cs, cn = coefs
     ext = jnp.concatenate([top[None, :], x, bottom[None, :]], axis=0)
@@ -129,519 +125,3 @@ def stencil_5pt_halo(
     left = jnp.pad(mid[:, :-1], ((0, 0), (1, 0)))
     right = jnp.pad(mid[:, 1:], ((0, 0), (0, 1)))
     return c0 * mid + cw * left + ce * right + cs * up + cn * down
-
-
-# ---------------------------------------------------------------------------
-# Pallas kernels (block resident in VMEM).
-# ---------------------------------------------------------------------------
-
-
-def _halo_kernel(coef_ref, x_ref, top_ref, bot_ref, o_ref):
-    c0 = coef_ref[0]
-    cw = coef_ref[1]
-    ce = coef_ref[2]
-    cs = coef_ref[3]
-    cn = coef_ref[4]
-    x = x_ref[:]
-    up = jnp.concatenate([top_ref[:], x[:-1, :]], axis=0)
-    down = jnp.concatenate([x[1:, :], bot_ref[:]], axis=0)
-    left = jnp.pad(x[:, :-1], ((0, 0), (1, 0)))
-    right = jnp.pad(x[:, 1:], ((0, 0), (0, 1)))
-    o_ref[:] = c0 * x + cw * left + ce * right + cs * up + cn * down
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def stencil_5pt_pallas_halo(
-    x: jnp.ndarray,
-    top: jnp.ndarray,
-    bottom: jnp.ndarray,
-    coefs: jnp.ndarray | None = None,
-    interpret: bool = False,
-) -> jnp.ndarray:
-    """Pallas stencil over a (rows, N) VMEM-resident block with explicit
-    (1, N) halo rows. Single program; the block is the unit of work —
-    for distributed grids this is called per shard under shard_map."""
-    if coefs is None:
-        coefs = jnp.array([4.0, -1.0, -1.0, -1.0, -1.0], dtype=x.dtype)
-    if top.ndim == 1:
-        top = top[None, :]
-    if bottom.ndim == 1:
-        bottom = bottom[None, :]
-    return pl.pallas_call(
-        _halo_kernel,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct(x.shape, x.dtype),
-        interpret=interpret,
-    )(coefs, x, top, bottom)
-
-
-def stencil_5pt_pallas(
-    x: jnp.ndarray,
-    coefs: jnp.ndarray | None = None,
-    interpret: bool = False,
-) -> jnp.ndarray:
-    """Pallas stencil on a full (N, N) grid with Dirichlet boundaries
-    (zero halos). Requires the grid to fit in VMEM (f32 N ≲ 1024)."""
-    zero = jnp.zeros((1, x.shape[1]), dtype=x.dtype)
-    return stencil_5pt_pallas_halo(x, zero, zero, coefs, interpret=interpret)
-
-
-# ---------------------------------------------------------------------------
-# Blocked Pallas stencil for grids beyond VMEM (measured: the jnp
-# roll-based stencil drops from ~600 GB/s at 1024² to ~250 GB/s at
-# 4096² — XLA's fusion/tiling degrades on large 2-D shapes). Grid over
-# row blocks; each step sees the previous/current/next block (halo
-# windows, same clamp-is-harmless trick as ops/sparse.dia_spmv_pallas:
-# an edge clamp reads garbage rows whose contribution is masked by the
-# kernel's own boundary handling below).
-# ---------------------------------------------------------------------------
-
-
-def _blocked_kernel(nblocks: int):
-    def kernel(coef_ref, x_ref, top_ref, bot_ref, o_ref):
-        i = pl.program_id(0)
-        c0, cw, ce, cs, cn = (coef_ref[0], coef_ref[1], coef_ref[2],
-                              coef_ref[3], coef_ref[4])
-        x = x_ref[:]
-        rows = x.shape[0]
-        # 8-row halo windows (Mosaic requires sublane-divisible block
-        # shapes — a (1, N) block is rejected); only the adjacent row
-        # of each is used. Clamped BlockSpecs at the grid edges supply
-        # a wrong window, masked to the Dirichlet zero here. Mask the
-        # FULL aligned window, then slice from the concat — a select
-        # on an offset slice mismatches Mosaic vector layouts.
-        w_top = jnp.where(i > 0, top_ref[:], jnp.zeros_like(top_ref[:]))
-        w_bot = jnp.where(i < nblocks - 1, bot_ref[:],
-                          jnp.zeros_like(bot_ref[:]))
-        up = jnp.concatenate([w_top, x], axis=0)[7: 7 + rows]
-        down = jnp.concatenate([x, w_bot], axis=0)[1: 1 + rows]
-        left = jnp.pad(x[:, :-1], ((0, 0), (1, 0)))
-        right = jnp.pad(x[:, 1:], ((0, 0), (0, 1)))
-        o_ref[:] = c0 * x + cw * left + ce * right + cs * up + cn * down
-
-    return kernel
-
-
-def stencil_blocked_feasible(n: int) -> bool:
-    """True iff `stencil_5pt_pallas_blocked` can tile an (n, n) grid
-    with its auto row sizing — derived from the SAME sizing helper the
-    kernel uses, so the router and the impl cannot drift."""
-    rows = _auto_block_rows(n, 1 << 19)
-    if rows == n:
-        return True  # single-block path (n² ≤ 2^19 elems — fits VMEM)
-    return n % rows == 0 and rows % 8 == 0
-
-
-def _pallas_routable(x: jnp.ndarray) -> bool:
-    """Shared routing predicate: f32 square grid on a single-chip TPU
-    runtime with a feasible blocked tiling. Single-device only — on a
-    multi-device runtime the operand may be GSPMD-sharded and a
-    pallas_call would force it local (gather the grid onto one chip)."""
-    return (x.dtype == jnp.float32 and x.ndim == 2
-            and x.shape[0] == x.shape[1]
-            and jax.default_backend() == "tpu"
-            and jax.device_count() == 1
-            and stencil_blocked_feasible(x.shape[0]))
-
-
-def stencil_5pt_routed(x: jnp.ndarray) -> jnp.ndarray:
-    """Laplacian stencil routed by dtype/backend/shape: the blocked
-    Pallas kernel for f32 square grids on TPU (1.7× the jnp roll form
-    at 4096² — XLA's fusion degrades on large 2-D shapes), the jnp
-    form everywhere else (f64, CPU, sharded-unfriendly shapes). Only
-    for SINGLE-DEVICE use — a pallas_call forces a sharded operand
-    local."""
-    if _pallas_routable(x):
-        return stencil_5pt_pallas_blocked(x)
-    return stencil_5pt_apply(x)
-
-
-def stencil_5pt_routed_general(x: jnp.ndarray, coefs) -> jnp.ndarray:
-    """General-coefficient form of ``stencil_5pt_routed`` (the blocked
-    kernel already takes arbitrary (c0, cw, ce, cs, cn) — used by the
-    convection-diffusion multigrid residuals)."""
-    if _pallas_routable(x):
-        return stencil_5pt_pallas_blocked(
-            x, jnp.asarray(coefs, dtype=x.dtype)
-        )
-    return stencil_5pt_general(x, *coefs)
-
-
-def _auto_block_rows(n: int, budget_elems: int) -> int:
-    """Largest divisor of n that is a multiple of 8 (or n itself) with
-    rows·n ≤ budget_elems — keeps the operand set inside VMEM."""
-    limit = max(8, budget_elems // max(n, 1))
-    if n <= limit:
-        return n
-    best = 8
-    for d in range(8, limit + 1, 8):
-        if n % d == 0:
-            best = d
-    return best
-
-
-@functools.partial(
-    jax.jit, static_argnames=("interpret", "block_rows")
-)
-def stencil_5pt_pallas_blocked(
-    x: jnp.ndarray,
-    coefs: jnp.ndarray | None = None,
-    interpret: bool = False,
-    block_rows: int | None = None,
-) -> jnp.ndarray:
-    """Pallas stencil for an (N, N) grid of ANY size: row-blocked, each
-    block VMEM-resident; the 8-row halo windows are separate BlockSpecs
-    so neighbor blocks are never re-read (traffic stays at
-    read-x + write-y). Grid rows must divide by block_rows.
-
-    Compiled path traced with x64 off: clamped index maps otherwise
-    return i64, which Mosaic rejects (func.return legalization)."""
-    if not interpret:
-        with jax.enable_x64(False):
-            return _stencil_blocked_impl(x, coefs, interpret, block_rows)
-    return _stencil_blocked_impl(x, coefs, interpret, block_rows)
-
-
-def _stencil_blocked_impl(
-    x: jnp.ndarray,
-    coefs: jnp.ndarray | None,
-    interpret: bool,
-    block_rows: int,
-) -> jnp.ndarray:
-    n = x.shape[0]
-    if coefs is None:
-        coefs = jnp.array([4.0, -1.0, -1.0, -1.0, -1.0], dtype=x.dtype)
-    if block_rows is None:
-        # ~2^19 f32 elements per operand ≈ 2 MB; with in/out double
-        # buffering the set stays well under the 16 MB VMEM limit
-        # (measured: 256-row blocks at N=4096 OOM at 17.2 MB).
-        block_rows = _auto_block_rows(n, 1 << 19)
-    rows = min(block_rows, n)
-    if rows == n:
-        # single block: the whole-grid kernel (no halo machinery)
-        return stencil_5pt_pallas_halo(
-            x, jnp.zeros((1, x.shape[1]), x.dtype),
-            jnp.zeros((1, x.shape[1]), x.dtype), coefs,
-            interpret=interpret,
-        )
-    if n % rows != 0:
-        raise ValueError(f"grid rows {n} not divisible by {rows}")
-    if rows % 8 != 0:
-        raise ValueError(f"block_rows {rows} must be divisible by 8")
-    nblocks = n // rows
-    ratio = rows // 8
-    last8 = n // 8 - 1
-    return pl.pallas_call(
-        _blocked_kernel(nblocks),
-        grid=(nblocks,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((rows, x.shape[1]), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            # 8-row halo windows in (8, N) block units of the same
-            # array: the window ending at the block start / starting
-            # right after it, clamped at the edges (masked in-kernel).
-            pl.BlockSpec((8, x.shape[1]),
-                         lambda i: (jnp.maximum(i * ratio - 1, 0), 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((8, x.shape[1]),
-                         lambda i: (jnp.minimum((i + 1) * ratio, last8),
-                                    0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((rows, x.shape[1]), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct(x.shape, x.dtype),
-        interpret=interpret,
-    )(coefs, x, x, x)
-
-
-# ---------------------------------------------------------------------------
-# Double-double (f32-pair) Poisson stencil: the f64 Pallas route.
-# Mosaic has no f64; XLA's emulated-f64 stencil reaches only 0.09-0.23
-# of HBM peak (artifacts/roofline_tpu.jsonl). The error-free-
-# transformation kernel below (ops/dd.py) moves the SAME bytes as f64
-# (16 B/point hi+lo in and out) with ~2^-49-accurate arithmetic; the
-# Poisson coefficients (4, -1) are exact powers of two so only the
-# adds carry rounding (no Dekker splitting needed). Reference parity
-# target: poisson.f90:38-76 in real(8).
-# ---------------------------------------------------------------------------
-
-
-def _dd_neighbors(x, w_top, w_bot):
-    """Shifted neighbor views of one f32 component (positional, exact;
-    identical shift pattern to _blocked_kernel)."""
-    rows = x.shape[0]
-    up = jnp.concatenate([w_top, x], axis=0)[7: 7 + rows]
-    down = jnp.concatenate([x, w_bot], axis=0)[1: 1 + rows]
-    left = jnp.pad(x[:, :-1], ((0, 0), (1, 0)))
-    right = jnp.pad(x[:, 1:], ((0, 0), (0, 1)))
-    return up, down, left, right
-
-
-def _dd_blocked_kernel(nblocks: int):
-    from gmres_tpu.ops.dd import dd_add, dd_scale_pow2, dd_sub
-
-    def kernel(xh_ref, xl_ref, th_ref, bh_ref, tl_ref, bl_ref,
-               oh_ref, ol_ref):
-        from gmres_tpu.ops.dd import no_fences
-
-        with no_fences():  # Mosaic has no optimization_barrier
-            _dd_body(xh_ref, xl_ref, th_ref, bh_ref, tl_ref, bl_ref,
-                     oh_ref, ol_ref)
-
-    def _dd_body(xh_ref, xl_ref, th_ref, bh_ref, tl_ref, bl_ref,
-                 oh_ref, ol_ref):
-        i = pl.program_id(0)
-        xh, xl = xh_ref[:], xl_ref[:]
-
-        def masked(win_ref, first):
-            w = win_ref[:]
-            keep = (i > 0) if first else (i < nblocks - 1)
-            return jnp.where(keep, w, jnp.zeros_like(w))
-
-        uh, dh, lh, rh = _dd_neighbors(
-            xh, masked(th_ref, True), masked(bh_ref, False)
-        )
-        ul, dl, ll, rl = _dd_neighbors(
-            xl, masked(tl_ref, True), masked(bl_ref, False)
-        )
-        s = dd_add(
-            dd_add((lh, ll), (rh, rl)), dd_add((uh, ul), (dh, dl))
-        )
-        y = dd_sub(dd_scale_pow2((xh, xl), 4.0), s)
-        oh_ref[:] = y[0]
-        ol_ref[:] = y[1]
-
-    return kernel
-
-
-@functools.partial(
-    jax.jit, static_argnames=("interpret", "block_rows")
-)
-def stencil_5pt_dd_pallas_blocked(
-    x_hi: jnp.ndarray,
-    x_lo: jnp.ndarray,
-    interpret: bool = False,
-    block_rows: int | None = None,
-):
-    """Poisson stencil on a double-double grid: (hi, lo) f32 pair in,
-    (hi, lo) pair out, row-blocked like ``stencil_5pt_pallas_blocked``
-    (8-row halo windows per component, Dirichlet zeros masked at the
-    edges). Accuracy ~2^-48 relative per application
-    (tests/test_dd_stencil.py pins it against the f64 oracle)."""
-    if not interpret:
-        with jax.enable_x64(False):
-            return _dd_blocked_impl(x_hi, x_lo, interpret, block_rows)
-    return _dd_blocked_impl(x_hi, x_lo, interpret, block_rows)
-
-
-def _dd_blocked_impl(x_hi, x_lo, interpret, block_rows):
-    n = x_hi.shape[0]
-    if block_rows is None:
-        # HALF the f32 kernel's budget: the dd kernel carries twice
-        # the buffers (hi+lo blocks, 4 halo windows, 2 outputs) and
-        # the 2^19 budget exceeded Mosaic's 16M scoped-vmem limit at
-        # 4096² (measured: 22.16M requested).
-        block_rows = _auto_block_rows(n, 1 << 18)
-    rows = min(block_rows, n)
-    if n % rows != 0:
-        raise ValueError(f"grid rows {n} not divisible by {rows}")
-    if rows % 8 != 0:
-        raise ValueError(f"block_rows {rows} must be divisible by 8")
-    ncols = x_hi.shape[1]
-    nblocks = n // rows
-    ratio = rows // 8
-    last8 = n // 8 - 1
-    block = pl.BlockSpec((rows, ncols), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM)
-    win_above = pl.BlockSpec(
-        (8, ncols), lambda i: (jnp.maximum(i * ratio - 1, 0), 0),
-        memory_space=pltpu.VMEM,
-    )
-    win_below = pl.BlockSpec(
-        (8, ncols), lambda i: (jnp.minimum((i + 1) * ratio, last8), 0),
-        memory_space=pltpu.VMEM,
-    )
-    out = jax.ShapeDtypeStruct((n, ncols), jnp.float32)
-    return pl.pallas_call(
-        _dd_blocked_kernel(nblocks),
-        grid=(nblocks,),
-        in_specs=[block, block, win_above, win_below, win_above,
-                  win_below],
-        out_specs=(block, block),
-        out_shape=(out, out),
-        interpret=interpret,
-    )(x_hi, x_lo, x_hi, x_hi, x_lo, x_lo)
-
-
-def stencil_5pt_f64_via_dd(
-    x: jnp.ndarray, interpret: bool = False
-) -> jnp.ndarray:
-    """One f64 Poisson stencil application through the dd kernel:
-    split -> dd kernel -> recombine. The split/recombine are XLA
-    elementwise passes, so a SINGLE application pays ~3x the ideal f64
-    traffic — amortize with ``stencil_5pt_f64_dd_chain`` (split once,
-    apply k times) the way a dd-resident solver loop would."""
-    from gmres_tpu.ops.dd import dd_from_f64, dd_to_f64
-
-    hi, lo = dd_from_f64(x)
-    return dd_to_f64(
-        stencil_5pt_dd_pallas_blocked(hi, lo, interpret=interpret)
-    )
-
-
-def stencil_5pt_f64_dd_chain(
-    x: jnp.ndarray, k: int, interpret: bool = False
-) -> jnp.ndarray:
-    """k chained f64 stencil applications in dd space (one split, one
-    recombine): the amortized form, and the honest roofline measurement
-    of the dd route's per-application bandwidth."""
-    from gmres_tpu.ops.dd import dd_from_f64, dd_to_f64
-
-    hi, lo = dd_from_f64(x)
-    hi, lo = jax.lax.fori_loop(
-        0, k,
-        lambda _, p: stencil_5pt_dd_pallas_blocked(
-            p[0], p[1], interpret=interpret
-        ),
-        (hi, lo),
-    )
-    return dd_to_f64((hi, lo))
-
-
-def _dd_general_kernel(nblocks: int):
-    from gmres_tpu.ops.dd import dd_add, dd_mul_presplit
-
-    def kernel(coef_ref, xh_ref, xl_ref, th_ref, bh_ref, tl_ref,
-               bl_ref, oh_ref, ol_ref):
-        from gmres_tpu.ops.dd import no_fences
-
-        with no_fences():  # Mosaic has no optimization_barrier
-            _dd_gbody(coef_ref, xh_ref, xl_ref, th_ref, bh_ref,
-                      tl_ref, bl_ref, oh_ref, ol_ref)
-
-    def _dd_gbody(coef_ref, xh_ref, xl_ref, th_ref, bh_ref, tl_ref,
-                  bl_ref, oh_ref, ol_ref):
-        i = pl.program_id(0)
-        xh, xl = xh_ref[:], xl_ref[:]
-
-        def masked(win_ref, first):
-            w = win_ref[:]
-            keep = (i > 0) if first else (i < nblocks - 1)
-            return jnp.where(keep, w, jnp.zeros_like(w))
-
-        uh, dh, lh, rh = _dd_neighbors(
-            xh, masked(th_ref, True), masked(bh_ref, False)
-        )
-        ul, dl, ll, rl = _dd_neighbors(
-            xl, masked(tl_ref, True), masked(bl_ref, False)
-        )
-        # coef_ref holds (c0,cw,ce,cs,cn) PRE-SPLIT (coef_split12):
-        # [ca0..ca4, cb0..cb4, lo0..lo4] — Mosaic's bitcast is
-        # vector-only, so the scalar 12-bit splits happen before the
-        # pallas_call. Explicit f32 on the reads: under interpret+x64
-        # the SMEM scalars otherwise PROMOTE the whole dd chain to f64
-        # and the two independent f32 output roundings break the
-        # error-free hi/lo pairing (measured: 2e-7 instead of 1e-13).
-        def c(j):
-            return (coef_ref[j].astype(jnp.float32),
-                    coef_ref[5 + j].astype(jnp.float32),
-                    coef_ref[10 + j].astype(jnp.float32))
-
-        y = dd_mul_presplit((xh, xl), *c(0))
-        for j, pair in enumerate(
-            [(lh, ll), (rh, rl), (uh, ul), (dh, dl)]
-        ):
-            y = dd_add(y, dd_mul_presplit(pair, *c(1 + j)))
-        oh_ref[:] = y[0]
-        ol_ref[:] = y[1]
-
-    return kernel
-
-
-@functools.partial(
-    jax.jit, static_argnames=("interpret", "block_rows")
-)
-def stencil_5pt_dd_general_pallas_blocked(
-    x_hi: jnp.ndarray,
-    x_lo: jnp.ndarray,
-    coefs: jnp.ndarray,
-    interpret: bool = False,
-    block_rows: int | None = None,
-):
-    """General-coefficient double-double stencil: (hi, lo) pair in/out
-    with ARBITRARY f64 coefficients carried as dd pairs (split in XLA,
-    10 SMEM scalars) — the non-power-of-two products go through the
-    Dekker two_prod (ops/dd.py), so convection-diffusion and varcoef
-    f64 stencils get the same Pallas route as Poisson. ~2^-48 relative
-    accuracy (tests/test_dd_stencil.py)."""
-    from gmres_tpu.ops.dd import coef_split12
-
-    ca, cb, c_lo = coef_split12(coefs.astype(jnp.float64))
-    cpack = jnp.concatenate([ca, cb, c_lo])
-    if not interpret:
-        with jax.enable_x64(False):
-            return _dd_general_impl(x_hi, x_lo, cpack, interpret,
-                                    block_rows)
-    return _dd_general_impl(x_hi, x_lo, cpack, interpret, block_rows)
-
-
-def _dd_general_impl(x_hi, x_lo, cpack, interpret, block_rows):
-    n = x_hi.shape[0]
-    if block_rows is None:
-        # see _dd_blocked_impl: half budget for the doubled buffer set
-        block_rows = _auto_block_rows(n, 1 << 18)
-    rows = min(block_rows, n)
-    if n % rows != 0:
-        raise ValueError(f"grid rows {n} not divisible by {rows}")
-    if rows % 8 != 0:
-        raise ValueError(f"block_rows {rows} must be divisible by 8")
-    ncols = x_hi.shape[1]
-    nblocks = n // rows
-    ratio = rows // 8
-    last8 = n // 8 - 1
-    block = pl.BlockSpec((rows, ncols), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM)
-    win_above = pl.BlockSpec(
-        (8, ncols), lambda i: (jnp.maximum(i * ratio - 1, 0), 0),
-        memory_space=pltpu.VMEM,
-    )
-    win_below = pl.BlockSpec(
-        (8, ncols), lambda i: (jnp.minimum((i + 1) * ratio, last8), 0),
-        memory_space=pltpu.VMEM,
-    )
-    out = jax.ShapeDtypeStruct((n, ncols), jnp.float32)
-    return pl.pallas_call(
-        _dd_general_kernel(nblocks),
-        grid=(nblocks,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM),
-                  block, block, win_above, win_below, win_above,
-                  win_below],
-        out_specs=(block, block),
-        out_shape=(out, out),
-        interpret=interpret,
-    )(cpack, x_hi, x_lo, x_hi, x_hi, x_lo, x_lo)
-
-
-def stencil_5pt_general_f64_via_dd(
-    x: jnp.ndarray, coefs, interpret: bool = False
-) -> jnp.ndarray:
-    """One general-coefficient f64 stencil application through the dd
-    kernel (split → kernel → recombine; amortize in dd space the way
-    stencil_5pt_f64_dd_chain does for Poisson)."""
-    from gmres_tpu.ops.dd import dd_from_f64, dd_to_f64
-
-    hi, lo = dd_from_f64(x)
-    return dd_to_f64(
-        stencil_5pt_dd_general_pallas_blocked(
-            hi, lo, jnp.asarray(coefs, dtype=jnp.float64),
-            interpret=interpret,
-        )
-    )

@@ -34,17 +34,14 @@ def masked_back_substitution(
 
 
 def solve_small(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
-    """TPU-safe dense solve for small REPLICATED systems.
+    """Dense solve for small REPLICATED systems, in pure jnp.
 
-    ``jnp.linalg.solve`` lowers to XLA's LuDecomposition, which the TPU
-    compiler implements only for F32/C64 (observed on v5e: "Only F32
-    and C64 types are implemented in LuDecomposition; got shape
-    f64[10,10]") — so every x64 solver carrying a small dense solve
-    (GCRO-DR's harmonic-Ritz pencil, GMRES-DR's Hᵀ solve, IDR(s)'s
-    shadow system) failed to COMPILE on TPU. This routine is
-    partially-pivoted Gaussian elimination in pure jnp (fori_loop +
-    dynamic row ops + rank-1 updates) finished by the TPU-supported
-    triangular solve: every op is elementwise/matmul, so it compiles
+    ``jnp.linalg.solve`` lowers to XLA's LuDecomposition, which some
+    backends implement only for F32/C64, so the x64 solvers carrying a
+    small dense solve (GCRO-DR's harmonic-Ritz pencil, GMRES-DR's Hᵀ
+    solve, IDR(s)'s shadow system) use this instead:
+    partially-pivoted Gaussian elimination (fori_loop + dynamic row
+    ops + rank-1 updates) finished by a triangular solve: every op is elementwise/matmul, so it compiles
     for any dtype (f32/f64/c64/c128-on-CPU) on any backend. O(k³) on a
     replicated k ≲ 100 matrix — noise next to one stencil apply.
 

@@ -3,18 +3,18 @@
 Line relaxation — the smoother anisotropic problems require
 (precond/multigrid.py:anisotropic_multigrid_preconditioner) — needs
 MANY independent tridiagonal solves, one per grid line. The textbook
-Thomas algorithm is a strictly sequential O(n) recurrence: on a TPU
-that serializes the VPU and is unusable inside a fused cycle. PCR
+Thomas algorithm is a strictly sequential O(n) recurrence that
+serializes the vector units inside a fused cycle. PCR
 (Hockney–Golub) instead eliminates odd/even couplings in
 ⌈log₂ n⌉ steps of PURELY ELEMENTWISE arithmetic over the whole
 batch — each step is 9 multiplies + shifts on (batch, n) arrays, so
-the entire line sweep is log-depth VPU work with no gathers, no
+the entire line sweep is log-depth vector work with no gathers, no
 scans, and no per-line control flow. O(n log n) flops versus Thomas'
 O(n) is the right trade here: flops are free relative to the
 serialization (the same argument as DESIGN.md §1's bandwidth cost
 model).
 
-Shifts are `pltpu.roll`-free jnp.roll + mask (out-of-range neighbors
+Shifts are jnp.roll + mask (out-of-range neighbors
 contribute zero — the identity row they'd couple to), so the op works
 on any backend and shards trivially over the BATCH axes: lines along
 the last axis are device-local when the mesh shards leading axes,

@@ -2,7 +2,7 @@
 
 The reference's hand-split interior / edge / corner OpenMP loops
 (poisson.f90:38-76) are the serial shadow of this decomposition: the
-(N, N) grid is row-partitioned over the mesh, each chip owns a
+(N, N) grid is row-partitioned over the mesh, each device owns a
 (rows_local, N) block, and the 5-point stencil needs exactly one row
 from each neighbor per application.
 
@@ -17,9 +17,7 @@ Two routes exist for the same math:
   only the first/last row correction waits on the transfers — the
   communication/compute overlap XLA's latency-hiding scheduler is free
   to exploit because the data dependence is expressed at row
-  granularity. This is the route that keeps working when you want
-  Pallas kernels per shard (Pallas cannot be GSPMD-partitioned
-  automatically).
+  granularity. On GPUs XLA hands the ``ppermute`` to NCCL.
 
 Boundary semantics: ``ppermute`` leaves zeros on devices that receive
 no message, which IS the homogeneous-Dirichlet truncation of the
@@ -36,8 +34,11 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-from gmres_tpu.ops.stencil import stencil_5pt_pallas_halo
 from gmres_tpu.parallel.mesh import GRID_AXIS
+from gmres_tpu.precond.chebyshev import (
+    chebyshev_preconditioner,
+    chebyshev_ref_scalars,
+)
 
 LAPLACE_COEFS = (4.0, -1.0, -1.0, -1.0, -1.0)
 
@@ -49,7 +50,7 @@ def halo_exchange(
 
     Returns (top, bottom), each (1, ncols): ``top`` is the neighbor row
     above this shard (zeros on shard 0), ``bottom`` the row below
-    (zeros on the last shard). Two ICI sends of one row each.
+    (zeros on the last shard). Two sends of one row each.
     """
     n = jax.lax.axis_size(axis)
     down = [(i, i + 1) for i in range(n - 1)]
@@ -81,8 +82,6 @@ def halo_stencil_operator(
     mesh: Mesh,
     coefs=LAPLACE_COEFS,
     axis: str = GRID_AXIS,
-    use_pallas: bool = False,
-    interpret: bool = False,
 ) -> Callable:
     """Matrix-free 5-point stencil over a row-partitioned (N, N) grid
     with explicit ppermute halo exchange.
@@ -90,110 +89,22 @@ def halo_stencil_operator(
     The returned callable has the standard LinearOperator contract and
     composes with every solver — the solvers never know the operator is
     distributed (interfaces.f90:12-18 inversion of control).
-
-    use_pallas: run the local block through the Pallas VMEM kernel
-    (f32/bf16; f64 falls back to jnp, which has no Mosaic path).
     """
     spec = P(axis, None)
 
-    # Pallas calls don't carry varying-mesh-axes metadata; drop the vma
-    # check on that route (the specs still pin the sharding).
     @functools.partial(
         jax.shard_map, mesh=mesh, in_specs=spec, out_specs=spec,
-        check_vma=not use_pallas,
     )
     def apply(blk):
         top, bottom = halo_exchange(blk, axis)
-        if use_pallas and blk.dtype in (jnp.float32, jnp.bfloat16):
-            carr = jnp.asarray(coefs, dtype=blk.dtype)
-            return stencil_5pt_pallas_halo(
-                blk, top, bottom, carr, interpret=interpret
-            )
         return _local_stencil_overlapped(blk, top, bottom, coefs)
 
     return apply
 
 
-def rdma_stencil_operator(
-    mesh: Mesh,
-    coefs=LAPLACE_COEFS,
-    axis: str = GRID_AXIS,
-    interpret: bool = False,
-    detect_races: bool = False,
-) -> Callable:
-    """Matrix-free 5-point stencil whose halo exchange is an in-kernel
-    Pallas remote DMA (ops/stencil_rdma.py) instead of ppermute: the
-    two one-row ICI transfers are overlapped with the interior compute
-    by the kernel's own instruction order. Same LinearOperator contract
-    and boundary semantics as :func:`halo_stencil_operator`; f32/bf16
-    only (Mosaic). ``interpret=True`` runs the simulated-RDMA TPU
-    interpret mode (the single-chip test route)."""
-    from gmres_tpu.ops.stencil_rdma import stencil_5pt_rdma
-
-    spec = P(axis, None)
-    num = mesh.shape[axis]
-
-    @functools.partial(
-        jax.shard_map, mesh=mesh, in_specs=spec, out_specs=spec,
-        check_vma=False,
-    )
-    def apply(blk):
-        carr = jnp.asarray([*coefs, 0.0, 1.0], dtype=blk.dtype)
-        return stencil_5pt_rdma(
-            blk, carr, axis=axis, num_devices=num, interpret=interpret,
-            detect_races=detect_races,
-        )
-
-    return apply
-
-
-def rdma_chebyshev_preconditioner(
-    mesh: Mesh,
-    lam_min: float,
-    lam_max: float,
-    coefs=LAPLACE_COEFS,
-    axis: str = GRID_AXIS,
-    interpret: bool = False,
-    detect_races: bool = False,
-) -> Callable:
-    """Degree-2 Chebyshev preconditioner as ONE RDMA stencil kernel.
-
-    By linearity z = r/d + α(r − A(r)/d) = (1/d + α)·r − (α/d)·A(r),
-    so the whole cbpr2 application (chebyshev.f90:27-37) is the affine
-    form of :func:`gmres_tpu.ops.stencil_rdma.stencil_5pt_rdma`: one
-    in-kernel halo exchange, one VMEM pass, zero reductions. Pairs with
-    :func:`rdma_stencil_operator` for a preconditioned solve whose
-    entire per-iteration communication is kernel-issued RDMA plus the
-    solver's psum reductions."""
-    from gmres_tpu.ops.fused import chebyshev_ref_scalars
-    from gmres_tpu.ops.stencil_rdma import stencil_5pt_rdma
-
-    d, alpha = chebyshev_ref_scalars(lam_min, lam_max)
-    a, b = 1.0 / d + alpha, -alpha / d
-    spec = P(axis, None)
-    num = mesh.shape[axis]
-
-    @functools.partial(
-        jax.shard_map, mesh=mesh, in_specs=spec, out_specs=spec,
-        check_vma=False,
-    )
-    def m_inv(r_blk):
-        carr = jnp.asarray([*coefs, a, b], dtype=r_blk.dtype)
-        return stencil_5pt_rdma(
-            r_blk, carr, axis=axis, num_devices=num, interpret=interpret,
-            detect_races=detect_races,
-        )
-
-    return m_inv
-
-
-def halo_poisson_operator(
-    mesh: Mesh, use_pallas: bool = False, interpret: bool = False
-) -> Callable:
+def halo_poisson_operator(mesh: Mesh) -> Callable:
     """Distributed Laplacian (poisson.f90:33-77 semantics)."""
-    return halo_stencil_operator(
-        mesh, LAPLACE_COEFS, use_pallas=use_pallas, interpret=interpret
-    )
+    return halo_stencil_operator(mesh, LAPLACE_COEFS)
 
 
 def halo_chebyshev_preconditioner(
@@ -203,30 +114,18 @@ def halo_chebyshev_preconditioner(
     coefs=LAPLACE_COEFS,
     axis: str = GRID_AXIS,
     order: int = 2,
-    use_pallas: bool = False,
-    interpret: bool = False,
 ) -> Callable:
     """Distributed Chebyshev preconditioner over the halo operator.
 
     order=2 (default) is fused: one halo exchange + ONE pass producing
     z = r/d + α(r − A(r)/d) — the three loops of cbpr2
-    (chebyshev.f90:27-37) collapsed (see
-    ops/fused.py:chebyshev_poisson_fused for the linearity argument).
+    (chebyshev.f90:27-37) collapsed by linearity, A(r/d) = A(r)/d.
     order>2 composes the general semi-iteration over the halo stencil
     operator (one halo exchange per sweep — the unavoidable
     communication of a deep polynomial across shards).
     """
-    from gmres_tpu.ops.fused import (
-        chebyshev_poisson_fused,
-        chebyshev_ref_scalars,
-    )
-    from gmres_tpu.precond.chebyshev import chebyshev_preconditioner
-
     if order != 2:
-        a_halo = halo_stencil_operator(
-            mesh, coefs, axis=axis, use_pallas=use_pallas,
-            interpret=interpret,
-        )
+        a_halo = halo_stencil_operator(mesh, coefs, axis=axis)
         return chebyshev_preconditioner(
             a_halo, lam_min, lam_max, order=order, reference_form=False
         )
@@ -236,15 +135,9 @@ def halo_chebyshev_preconditioner(
 
     @functools.partial(
         jax.shard_map, mesh=mesh, in_specs=spec, out_specs=spec,
-        check_vma=not use_pallas,
     )
     def m_inv(r_blk):
         top, bottom = halo_exchange(r_blk, axis)
-        if use_pallas and r_blk.dtype in (jnp.float32, jnp.bfloat16):
-            return chebyshev_poisson_fused(
-                r_blk, top, bottom, d, alpha, coefs,
-                interpret=interpret,
-            )
         ar = _local_stencil_overlapped(r_blk, top, bottom, coefs)
         return r_blk / d + alpha * (r_blk - ar / d)
 

@@ -1,13 +1,13 @@
 """Device-mesh construction and vector placement.
 
 The reference's entire parallelism story is a single OpenMP fork-join
-region (SURVEY §2 C14). The TPU-native replacement: a 1-D (or
-host×chip 2-D) ``jax.sharding.Mesh`` over which grid vectors are
+region (SURVEY §2 C14). The replacement here: a 1-D (or
+host×device 2-D) ``jax.sharding.Mesh`` over which grid vectors are
 row-partitioned. The solvers are written in pure jnp, so placing the
 inputs is the ONLY distribution step — under jit, XLA turns dot
-products into ``psum`` all-reduces over ICI and the stencil's row
-shifts into collective-permute halo exchanges. One chip and an N-host
-slice run the same program.
+products into ``psum`` all-reduces (NCCL on GPUs) and the stencil's
+row shifts into collective-permute halo exchanges. One device and N
+hosts run the same program.
 
 Gotcha encoded here: current JAX defaults ``make_mesh`` to *Explicit*
 axis types; the solvers rely on automatic (GSPMD) propagation, so the
@@ -80,13 +80,13 @@ def init_multihost(
     process_id: Optional[int] = None,
 ) -> Mesh:
     """Multi-host setup: ``jax.distributed.initialize`` + a 1-D mesh
-    over every chip in the slice (ICI within a host, DCN across).
+    over every device of every host.
 
     The same SPMD solver program then runs unchanged — this is the
     capability the reference fundamentally lacks (its parallelism stops
-    at one shared-memory process, SURVEY §2 C14). On managed TPU pods
-    all three arguments are discovered from the environment; pass them
-    explicitly elsewhere.
+    at one shared-memory process, SURVEY §2 C14). Pass all three
+    arguments where no cluster environment provides them (e.g.
+    ``coordinator_address="localhost:<port>"`` on one host).
     """
     jax.distributed.initialize(
         coordinator_address=coordinator_address,

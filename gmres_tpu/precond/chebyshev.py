@@ -17,8 +17,8 @@ order and normalize.
 Beyond parity, ``chebyshev_preconditioner(order=k)`` implements the
 standard order-k Chebyshev iteration z_k ≈ A⁻¹r via the three-term
 recurrence on the interval [λ_min, λ_max] — each step is one fused
-stencil+axpy, ideal for TPU (no dot products, no communication beyond
-the operator's own halos).
+stencil+axpy (no dot products, no communication beyond the operator's
+own halos).
 """
 
 from __future__ import annotations
@@ -29,6 +29,17 @@ import jax
 import jax.numpy as jnp
 
 from gmres_tpu.types import LinearOperator, Preconditioner
+
+
+def chebyshev_ref_scalars(lam_min: float, lam_max: float):
+    """(d, α) of the reference's cbpr2 closed form
+    (chebyshev.f90:20-25), bounds in either order."""
+    lo, hi = sorted((float(lam_min), float(lam_max)))
+    c = (hi - lo) / 2.0
+    d = (hi + lo) / 2.0
+    alpha = 1.0 / d
+    beta = (c * alpha / 2.0) ** 2
+    return d, 1.0 / (d - beta)
 
 
 def chebyshev_preconditioner(
@@ -47,11 +58,7 @@ def chebyshev_preconditioner(
     lo, hi = sorted((float(lam_min), float(lam_max)))
 
     if order == 2 and reference_form:
-        c = (hi - lo) / 2.0
-        d = (hi + lo) / 2.0
-        alpha = 1.0 / d
-        beta = (c * alpha / 2.0) ** 2
-        alpha = 1.0 / (d - beta)
+        d, alpha = chebyshev_ref_scalars(lo, hi)
 
         def m_inv(r):
             z = r / d
@@ -97,12 +104,6 @@ def chebyshev_preconditioner(
     return m_inv
 
 
-def _whole_grid_vmem_ok(r) -> bool:
-    """Whole grid + 2 scratch buffers within a conservative VMEM cap —
-    the gate for the single-block (non-blocked) fused smoother kernels."""
-    return 3 * r.size * r.dtype.itemsize <= 8 * 2**20
-
-
 def chebyshev_stencil_preconditioner(
     lam_min: float,
     lam_max: float,
@@ -111,15 +112,16 @@ def chebyshev_stencil_preconditioner(
     use_pallas: str = "auto",
 ) -> Preconditioner:
     """Chebyshev preconditioner specialized to a 5-point stencil
-    operator, with a fully VMEM-resident Pallas fast path
-    (ops/fused.py:chebyshev_k_poisson_pallas): all ``order`` stencil
-    sweeps run on-chip, so HBM traffic is 2·n² words instead of
-    2·order·n².
+    operator, with the fused smoother kernel
+    (ops/smoother.py:poly_stencil_smoother) as its f32 GPU route: all
+    ``order`` − 1 stencil sweeps in one launch per ``order`` ≤ 9 chunk
+    instead of one launch and five grid passes per sweep.
 
-    use_pallas: "auto" (f32/bf16 on TPU with the grid small enough for
-    VMEM), "never", or "always" (testing). The f64 route — including
-    the outer true-residual applications of mixed-precision GMRES-IR —
-    always takes the jnp recurrence (Mosaic has no f64 path).
+    use_pallas: "auto" (the kernel for f32 grids on a single GPU, the
+    jnp recurrence otherwise — f64 included, so the outer
+    true-residual applications of mixed-precision GMRES-IR stay jnp),
+    "never", or "interpret" (the kernel in the Pallas interpreter, for
+    CPU tests).
 
     Both routes apply the SAME polynomial (the order-k semi-iteration)
     so dtype/backend never changes the preconditioner being applied —
@@ -127,12 +129,11 @@ def chebyshev_stencil_preconditioner(
     cbpr2's closed form; use ``chebyshev_preconditioner`` for exact
     cbpr2 reference parity.
     """
-    import jax
-
-    from gmres_tpu.ops.fused import (
-        chebyshev_blocked_feasible,
-        chebyshev_k_poisson_pallas,
-        chebyshev_k_poisson_pallas_blocked,
+    from gmres_tpu.ops.smoother import (
+        USE_PALLAS,
+        chebyshev_k_scalars,
+        kernel_mode,
+        poly_stencil_smoother,
     )
     from gmres_tpu.ops.stencil import stencil_5pt_general
 
@@ -141,35 +142,21 @@ def chebyshev_stencil_preconditioner(
     jnp_form = chebyshev_preconditioner(
         a_jnp, lo, hi, order=order, reference_form=False,
     )
+    if use_pallas not in USE_PALLAS:
+        raise ValueError(f"unknown use_pallas {use_pallas!r}")
     if use_pallas == "never":
         return jnp_form
+    theta, _, steps = chebyshev_k_scalars(lo, hi, order)
+    steps = tuple(steps)
+    coefs = tuple(float(c) for c in coefs)
 
     def m_inv(r):
-        dtype_ok = (
-            r.dtype in (jnp.float32, jnp.bfloat16)
-            and r.ndim == 2
-            and jax.default_backend() == "tpu"
-            # single-chip only: a pallas_call forces a GSPMD-sharded
-            # operand local; multi-device runs keep the jnp route
-            # (per-shard Pallas use goes through shard_map +
-            # use_pallas="always")
-            and jax.device_count() == 1
+        mode = kernel_mode(r, use_pallas)
+        if mode is None:
+            return jnp_form(r)
+        return poly_stencil_smoother(
+            r, theta, steps, coefs, interpret=(mode == "interpret")
         )
-        whole_ok = dtype_ok and _whole_grid_vmem_ok(r)
-        if whole_ok or use_pallas == "always":
-            return chebyshev_k_poisson_pallas(
-                r, order, lo, hi, tuple(coefs),
-                interpret=(use_pallas == "always"
-                           and jax.default_backend() != "tpu"),
-            )
-        # grids beyond VMEM: the row-blocked trapezoidal kernel
-        # (measured 36× the jnp recurrence at order 8, 4096²)
-        if (dtype_ok and r.shape[0] == r.shape[1]
-                and chebyshev_blocked_feasible(r.shape[0], order)):
-            return chebyshev_k_poisson_pallas_blocked(
-                r, order, lo, hi, tuple(coefs)
-            )
-        return jnp_form(r)
 
     return m_inv
 

@@ -15,7 +15,7 @@ composes with plain :func:`cg`/:func:`minres` and stacks on top of
 any existing M (Chebyshev, multigrid) — deflation handles the low
 end of the spectrum, M the high end.
 
-TPU shape: A·W is precomputed ONCE (k matvecs at setup), so both
+Device shape: A·W is precomputed ONCE (k matvecs at setup), so both
 projection factors reduce to k-row block contractions against the
 stored W / AW blocks — per apply: TWO fused block all-reduces, two
 combinations, two replicated (k, k) triangular solves, zero extra

@@ -8,7 +8,7 @@ is local, costing O(1) sweeps per level and ~4/3 of one fine-grid pass
 in total traffic. For the 16.8M-variable 4096² benchmark this replaces
 an order-256 polynomial per Krylov iteration.
 
-TPU-native construction — every ingredient is communication-free or
+Construction — every ingredient is communication-free or
 stencil-local, so the whole cycle shards like the operator itself:
 
 * Operators: the SAME unit 5-point stencil (4, −1, −1, −1, −1) at every
@@ -42,10 +42,8 @@ def restrict_sum(x: jnp.ndarray) -> jnp.ndarray:
     h²-scaled operators: the value average times the area factor 4).
 
     Implemented as strided slices, NOT reshape(m,2,m,2).sum: the
-    reshape form hits a pathological XLA/TPU path at scale — measured
-    4096²: restrict+prolong round trip 34.4 ms via reshape vs 0.46 ms
-    via slices/repeat, a 75× difference that dominated the whole
-    V-cycle. Bitwise-identical results (asserted when measured)."""
+    reshape form once hit a pathological XLA layout path at 4096² that
+    dominated the whole V-cycle. Bitwise-identical results."""
     y = x[0::2, :] + x[1::2, :]
     return y[:, 0::2] + y[:, 1::2]
 
@@ -81,7 +79,7 @@ def poisson_multigrid_preconditioner(
     mesh + replicate_below: coarse-level agglomeration for distributed
       runs. Plain GSPMD keeps every level row-sharded, so each of the
       coarse solve's ``coarse_order`` stencil sweeps pays a (tiny)
-      halo collective-permute — pure ICI latency for grids holding a
+      halo collective-permute — pure interconnect latency for grids holding a
       handful of rows per chip. With a mesh given, any level whose
       grid size drops below ``replicate_below`` (default 8 rows per
       device) is constrained REPLICATED: one small all-gather on the
@@ -105,12 +103,10 @@ def poisson_multigrid_preconditioner(
             )
 
     # Smoothers route through chebyshev_stencil_preconditioner: same
-    # semi-iteration polynomial, but f32 single-device applications
-    # take the Pallas VMEM kernels (whole-grid when it fits, the
-    # blocked trapezoidal kernel beyond — measured 36× the jnp
-    # recurrence at order 8, 4096²). The distributed (mesh=) cycle
-    # stays on the jnp route: a pallas_call would force its sharded
-    # operand local.
+    # semi-iteration polynomial, but f32 single-GPU applications take
+    # the fused smoother kernel (ops/smoother.py). The distributed
+    # (mesh=) cycle stays on the jnp route: a pallas_call would force
+    # its sharded operand local.
     from gmres_tpu.precond.chebyshev import (
         chebyshev_stencil_preconditioner,
     )
@@ -135,15 +131,7 @@ def poisson_multigrid_preconditioner(
     )
 
     replicate_from = levels  # first level index to replicate (none)
-    # Residual stencils take the same routing as the smoothers:
-    # blocked Pallas on single-device f32, jnp otherwise/distributed.
-    if up != "never":
-        from gmres_tpu.ops.stencil import stencil_5pt_routed
-
-        _apply = stencil_5pt_routed
-    else:
-        _apply = stencil_5pt_apply
-    apply_at = {l: _apply for l in range(levels)}
+    apply_at = {l: stencil_5pt_apply for l in range(levels)}
     smoother_at = {l: (smoother, post_smoother) for l in range(levels)}
     coarse_at = coarse_solve
     if mesh is not None:
@@ -284,8 +272,8 @@ def convection_diffusion_multigrid_preconditioner(
       correction degrade — round 2 therefore STOPPED coarsening there,
       which left e.g. the 1024² problem with a 2-level cycle whose 512²
       "coarse solve" was 64 Jacobi sweeps: the weak preconditioner
-      behind the BiCGSTAB attainable-accuracy failure recorded in
-      ``artifacts/convdiff_tpu.jsonl`` (round 2). Coarse levels now
+      behind an earlier BiCGSTAB attainable-accuracy failure. Coarse
+      levels now
       switch to the first-order upwind stencil
       (``convection_diffusion_coefs_upwind``) — an M-matrix at ANY γ —
       and coarsening continues to ≤16 rows as in the Poisson cycle.
@@ -314,20 +302,19 @@ def convection_diffusion_multigrid_preconditioner(
       auto-falls-back to damped Jacobi per level where the central
       discretization exceeds the Péclet threshold.
 
-    TPU routing mirrors the Poisson cycle: single-device f32
-    applications take the VMEM/blocked trapezoidal Pallas kernels (the
-    damped-Jacobi sweep is the (a, b) = (0, ω/c₀) special case of the
-    same d-recurrence — ops/fused.py:jacobi_k_scalars), residuals take
-    the blocked general-coefficient stencil kernel; f64/CPU/distributed
-    stay on the jnp route.
+    Smoother routing mirrors the Poisson cycle: single-GPU f32
+    applications take the fused smoother kernel (the damped-Jacobi
+    sweep is the (a, b) = (0, ω/c₀) special case of the same
+    d-recurrence — ops/smoother.py:jacobi_k_scalars); residuals,
+    f64, CPU and distributed cycles stay on the jnp route.
 
     internal_dtype: run the WHOLE cycle in this dtype (cast r on entry,
       cast z back on exit). The standard mixed-precision play for an
       f64 outer solver (BiCGSTAB): the preconditioner is an
       approximation anyway, so f32 rounding inside it costs iterations
       only if it changes the cycle's contraction — measured: none at
-      these Péclet numbers — while making every smoother Pallas-
-      routable.
+      these Péclet numbers — while making every smoother
+      kernel-routable.
 
     Measured at 128², γ=(0.4, 0.2): unpreconditioned BiCGSTAB 234
     iterations → 7 with this cycle.
@@ -475,26 +462,20 @@ def convection_diffusion_multigrid_preconditioner(
         def _pin(x):
             return x
 
-    pallas_ok = use_pallas != "never" and mesh is None
-    if pallas_ok:
-        from gmres_tpu.ops.fused import jacobi_k_scalars
-        from gmres_tpu.ops.stencil import (
-            _pallas_routable,
-            stencil_5pt_routed_general,
-        )
-        from gmres_tpu.precond.chebyshev import (
-            _whole_grid_vmem_ok,
-        )
-        from gmres_tpu.ops.fused import (
-            poly_stencil_smoother_pallas,
-            poly_stencil_smoother_pallas_blocked,
-        )
+    from gmres_tpu.ops.smoother import (
+        USE_PALLAS,
+        jacobi_k_scalars,
+        kernel_mode,
+        poly_stencil_smoother,
+    )
+
+    if use_pallas not in USE_PALLAS:
+        raise ValueError(f"unknown use_pallas {use_pallas!r}")
+    kernel_ok = use_pallas != "never" and mesh is None
 
     def apply_l(x, l):
         if l >= replicate_from:
             return _pin(stencil_5pt_general(_pin(x), *coefs[l]))
-        if pallas_ok:
-            return stencil_5pt_routed_general(x, coefs[l])
         return stencil_5pt_general(x, *coefs[l])
 
     def cheb_apply(r, l, iters, iv):
@@ -517,7 +498,7 @@ def convection_diffusion_multigrid_preconditioner(
             )(r)
         return chebyshev_stencil_preconditioner(
             lo, hi, order=iters, coefs=coefs[l],
-            use_pallas=("auto" if pallas_ok else "never"),
+            use_pallas=(use_pallas if kernel_ok else "never"),
         )(r)
 
     def rbgs_smooth(r, l, iters):
@@ -525,7 +506,7 @@ def convection_diffusion_multigrid_preconditioner(
         # then black update, each a masked-Jacobi step whose stencil
         # only reads the OTHER color — so a full sweep is an exact
         # Gauss-Seidel iteration in checkerboard ordering, at the cost
-        # of 2 stencil applications. TPU-native form: parity masks from
+        # of 2 stencil applications. Parity masks from
         # broadcasted_iota (elementwise, fused by XLA into the stencil's
         # adds — no gathers, no reordering, shards like the stencil).
         # Smoothing is genuinely stronger than damped Jacobi (Poisson
@@ -533,8 +514,7 @@ def convection_diffusion_multigrid_preconditioner(
         # tests/test_multigrid.py::TestNonsymmetricSmoothing), and
         # unlike Chebyshev it needs no spectral interval, so it is safe
         # on the complex spectra where real-axis Chebyshev diverges.
-        # jnp-only route (the two masked applies fuse; a dedicated
-        # Pallas kernel would only re-derive the same VMEM traffic).
+        # jnp-only route (the two masked applies fuse).
         import jax
 
         c0 = coefs[l][0]
@@ -582,21 +562,15 @@ def convection_diffusion_multigrid_preconditioner(
         if iv is not None:
             return cheb_apply(r, l, iters, iv)
         step = omegas[l] / coefs[l][0]
-        if pallas_ok and l < replicate_from and _pallas_routable(r):
+        mode = kernel_mode(r, use_pallas) if kernel_ok else None
+        if mode is not None and l < replicate_from:
             theta, steps = jacobi_k_scalars(
                 omegas[l], coefs[l][0], iters
             )
-            if _whole_grid_vmem_ok(r):
-                return poly_stencil_smoother_pallas(
-                    r, theta, tuple(steps), coefs[l]
-                )
-            from gmres_tpu.ops.fused import chebyshev_blocked_feasible
-
-            if (r.shape[0] == r.shape[1]
-                    and chebyshev_blocked_feasible(r.shape[0], iters)):
-                return poly_stencil_smoother_pallas_blocked(
-                    r, theta, tuple(steps), coefs[l]
-                )
+            return poly_stencil_smoother(
+                r, theta, tuple(steps), tuple(coefs[l]),
+                interpret=(mode == "interpret"),
+            )
         e = step * r
         if iters <= 4:  # short smoothers: unrolled fuses best
             for _ in range(iters - 1):
@@ -733,14 +707,8 @@ def helmholtz_shifted_laplacian_preconditioner(
         order=coarse_order, coefs=coefs[-1], use_pallas=up,
     )
 
-    if up != "never":
-        from gmres_tpu.ops.stencil import stencil_5pt_routed_general
-
-        def _apply_raw(x, l):
-            return stencil_5pt_routed_general(x, coefs[l])
-    else:
-        def _apply_raw(x, l):
-            return stencil_5pt_general(x, *coefs[l])
+    def _apply_raw(x, l):
+        return stencil_5pt_general(x, *coefs[l])
 
     apply_at = {l: (lambda x, l=l: _apply_raw(x, l)) for l in range(levels)}
 
@@ -969,9 +937,8 @@ def csl_multigrid_preconditioner(
     smoothing is damped Jacobi e ← e + ω/c₀·(r − A e) with complex c₀
     (ω-JAC, the smoother of the original CSL papers — Chebyshev
     intervals don't exist for the complex-diagonal levels). Transfers
-    are the same adjoint sum/replicate pair. Everything is jnp: Mosaic
-    has no complex support, so there is deliberately no Pallas route
-    (the complex mults vectorize on the VPU as 4 real ones).
+    are the same adjoint sum/replicate pair. Everything is jnp (the
+    smoother kernel is real f32 only).
 
     Returns a complex-to-complex callable; use with
     ``gmres(..., variant="mgsr")`` (the complex-capable variant) on
@@ -980,10 +947,9 @@ def csl_multigrid_preconditioner(
     layout="split": the SPLIT-COMPLEX form — the same cycle acting on
     the (2, N, N) real re/im stack of
     ``models/helmholtz.py:helmholtz_split_operator``, every complex
-    scalar multiply expanded to its 2×2 real rotation. This is the
-    TPU route: the v5e runtime has no complex datapath at all
-    (measured: c128 fails to compile, every c64 op fails at run time),
-    while the split cycle is plain f32/f64 stencils. Exactly equal to
+    scalar multiply expanded to its 2×2 real rotation, for runtimes
+    without a complex datapath: the split cycle is plain f32/f64
+    stencils. Exactly equal to
     the complex cycle on CPU (tests/test_helmholtz_split.py pins the
     dense identification).
     """

@@ -17,7 +17,7 @@ spectrum by itself — making it the general-purpose option for SPD
 operators with fast spectral decay where nothing better is known
 (kernel/Gram matrices, regularized normal equations).
 
-TPU shape: construction is r batched matvecs + one tall QR-free
+Device shape: construction is r batched matvecs + one tall QR-free
 stabilized eigendecomposition (shift-regularized Cholesky of ΩᵀAΩ,
 (n, r)·(r, r) matmuls, one replicated (r, r) eigh — the
 small-replicated/large-sharded split of DESIGN.md §2); application is

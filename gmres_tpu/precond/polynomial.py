@@ -10,7 +10,7 @@ would place), and the induced s(z) = (1 − Π(1 − z/θᵢ))/z is a
 polynomial approximation of A⁻¹ tailored to A's actual spectrum,
 complex parts and all.
 
-Why this matters on a TPU mesh: applying s(A) is d operator
+Why this matters on a device mesh: applying s(A) is d operator
 applications and ZERO reductions — the same latency shape as the
 Chebyshev cycle (SURVEY §3.3's all-reduce tax avoided). A
 GMRES(m)+poly(d) solve pays GMRES's per-iteration collectives once
@@ -32,7 +32,7 @@ Degree sizing, learned by measurement: the polynomial must place roots
 near the WHOLE spectrum, and for the grid operators the smallest
 eigenvalues scale like h², so the required degree grows like 1/h —
 deg 24 collapses convdiff 64² (448 → 15 iterations) but DIVERGES at
-256² on CPU and TPU alike (|1 − z·s(z)| > 1 over the unreached lower
+256² on every backend (|1 − z·s(z)| > 1 over the unreached lower
 spectrum; the failure mode
 tests/test_polynomial.py::test_degree_too_low pins). For fine grids
 use the multigrid cycles or pair the polynomial with deflation; this

@@ -10,13 +10,13 @@ spectrum estimate, no grid, no symmetry assumption — and applying M is
 one gather-based SpMV (`ops/sparse.py:ell_spmv`), so it composes with
 every solver in the library as a right preconditioner.
 
-TPU-first construction: unlike the classic implementations (per-column
+Accelerator-first construction: unlike the classic implementations (per-column
 sparse QR on a CPU, irregular and sequential), every local problem here
 is embedded in FIXED shapes derived from the ELL widths of A — support
 S_j padded to the max column count w_c, residual rows T_j padded to
 w_c² — and all n of them are solved in ONE `vmap`-batched pass of dense
 (w_c × w_c) normal-equation solves: gather → one-hot contraction → a
-batched Cholesky-sized `linalg.solve` that XLA maps onto the MXU.
+batched Cholesky-sized `linalg.solve` that XLA maps onto matmuls.
 Duplicated residual rows (the unions T_j overlap) are deduplicated by a
 sort + first-occurrence mask; padded slots are zeroed, and a Tikhonov
 term λ·tr(G)/w_c keeps the masked normal matrix invertible (it also

@@ -10,7 +10,7 @@ them with ONE degree-ℓ MR polynomial fitted by a least-squares solve
 over the ℓ residual directions, which can place complex-conjugate root
 pairs; ℓ = 2 is the standard production choice.
 
-TPU shape:
+Device shape:
 
 * ℓ is static; the BiCG and MR parts are Python-unrolled at trace time
   (2ℓ stencil applications per outer cycle) inside one

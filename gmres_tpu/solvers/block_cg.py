@@ -4,8 +4,7 @@ The SPD counterpart of solvers/block_gmres.py and the same hardware
 argument (docs/DESIGN.md §4c): a single-RHS CG iteration is
 HBM-bandwidth-bound — stream x, r, p, Ap once per iteration for two
 dots. With s stacked RHS every long-vector op becomes an (s, n)
-batched op and the reductions become (s, s) Gram MATMULS feeding the
-MXU, amortizing the stream across the block. Algorithmically the
+batched op and the reductions become (s, s) Gram MATMULS, amortizing the stream across the block. Algorithmically the
 block also converges FASTER per iteration: each RHS draws on the
 union block-Krylov space, so clustered/shared spectral content is
 paid for once (tests pin block iterations strictly under the worst

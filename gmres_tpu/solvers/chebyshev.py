@@ -7,8 +7,8 @@ inner products in the recurrence at all. On a multi-chip mesh that is
 the whole game: CG pays 2 all-reduce latencies per operator
 application (SURVEY §3.3); Chebyshev iteration pays exactly ONE per
 ``order`` applications (the per-cycle convergence check), and on a
-single chip the entire cycle rides the fused VMEM Pallas kernels
-(ops/fused.py) when the operator is a 5-point stencil.
+single GPU the entire cycle rides the fused smoother kernel
+(ops/smoother.py) when the operator is a 5-point stencil.
 
 Structure: restarted correction form. Each cycle applies the order-k
 Chebyshev polynomial approximation of A⁻¹ (the SAME polynomial the
@@ -57,9 +57,9 @@ def chebyshev_solve(
 
     coefs: optional 5-point stencil coefficients (center, W, E, S, N);
       when given, the polynomial application routes through the fused
-      VMEM/blocked Pallas kernels (single-device f32/bf16) instead of
-      the generic operator recurrence — A itself is still used for the
-      per-cycle true residual.
+      smoother kernel (single-GPU f32) instead of the generic operator
+      recurrence — A itself is still used for the per-cycle true
+      residual.
     `iterations` counts cycles (order operator applications each + one
     residual); `residual` is the absolute true ‖b − Ax‖₂, matching
     CG's convergence semantics (cg.f90:37).

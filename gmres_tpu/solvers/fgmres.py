@@ -10,7 +10,7 @@ residual over span(Z): M may be an inner iterative solve (CG/GMRES
 with a fixed step budget — nonlinear in its input), a cycling
 preconditioner, or anything else callable.
 
-TPU design notes (same playbook as solvers/gmres.py):
+Design notes (same playbook as solvers/gmres.py):
 
 * Two fixed-size bases — V (m+1, shape) for the Arnoldi vectors and
   Z (m, shape) for the preconditioned directions — zero-initialized so
@@ -74,7 +74,7 @@ def fgmres(
         solver with a fixed step budget is the canonical use). None
         reduces to plain (unpreconditioned) GMRES.
       inner_dtype: work dtype for the V/Z bases and M/A applications
-        inside the cycle (float32 = the TPU fast path); convergence is
+        inside the cycle (float32 = the fast path); convergence is
         then certified by the f64 true residual at restart boundaries.
       compute_v_err: orthogonality audit of V (‖I − VᵀV‖-style metric,
         same definition as the MGSR variant's).

@@ -14,10 +14,10 @@ the approximation is exact for f any polynomial of degree < m, and
 for entire f (exp) converges superlinearly once m exceeds the
 spectral-interval width measure √(t·λmax).
 
-TPU shape: the basis build is :func:`arnoldi_factorization`'s CGS2
+Device shape: the basis build is :func:`arnoldi_factorization`'s CGS2
 loop (full reorthogonalization — plain three-term Lanczos loses
 orthogonality exactly when f(A) needs it most; CGS2 costs one fused
-matmul pass and keeps the MXU busy), the eigenproblem is a replicated
+matmul pass), the eigenproblem is a replicated
 (m, m) ``jnp.linalg.eigh``, and the combination is one tall matmul.
 Several f's / several time points reuse the SAME basis at the cost of
 an (m × nt) small matmul — ``expm_multiply`` accepts a vector t and
@@ -168,7 +168,7 @@ def trace_funm(
     factorization — the log-det / trace-inverse workhorse (Gaussian
     process likelihoods: log det A = tr log A).
 
-    TPU shape: the probes are INDEPENDENT — ``jax.vmap`` over the
+    Device shape: the probes are INDEPENDENT — ``jax.vmap`` over the
     whole factorization turns m probes into batched stencil applies
     and batched small eighs, the same batching economics as the
     multi-RHS solvers (DESIGN.md §4c). One dispatch, no loop.

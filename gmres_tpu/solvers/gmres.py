@@ -1,17 +1,17 @@
 """Restarted GMRES(m) with Householder (Walker '84) and MGS-with-
-reorthogonalization Arnoldi variants, plus TPU mixed-precision
+reorthogonalization Arnoldi variants, plus a mixed-precision
 iterative-refinement mode.
 
 Reference: ``src/gmres_hh.f90`` (Householder: dense 10-112, omp 211-385,
 preconditioned omp 388-566) and ``src/gmres_mgsr.f90`` (MGSR: dense
-11-95, matrix-free 98-199, omp 277-421). This is a ground-up TPU design
-of the same algorithms:
+11-95, matrix-free 98-199, omp 277-421). This is a ground-up
+accelerator design of the same algorithms:
 
 * Fixed-size basis buffers (m+1, *shape), zero-initialized so that the
   j-dependent sweeps need no masks — zero rows contribute nothing.
   Everything under jit is static-shape matmul/elementwise work.
 * Householder reflector products are kept in compact-WY form
-  (ops/householder.py): applying j reflectors is two MXU matmuls with
+  (ops/householder.py): applying j reflectors is two matmuls with
   ONE all-reduce instead of the reference's sequential 2j-dot sweep
   (gmres_hh.f90:453-485).
 * Gram-Schmidt offers "mgs2" (faithful: sequential modified GS run
@@ -23,15 +23,16 @@ of the same algorithms:
   matrix (ops/givens.py); back-substitution via a masked static
   triangular solve (ops/tri.py). The small-matrix state (H, g, Ω, y)
   is always kept in the outer dtype.
-* **Mixed precision (``inner_dtype=float32``)**: TPUs have no native
-  f64 — emulated f64 matvecs measured ~15-20× slower than f32 on
-  v5e. Restarted GMRES *is* iterative refinement: each cycle solves a
+* **Mixed precision (``inner_dtype=float32``)**: f32 halves the bytes
+  of every basis and operator pass (and runs the fused f32 smoother
+  kernel). Restarted GMRES *is* iterative refinement: each cycle solves a
   correction equation, and the restart recomputes the true residual.
-  So the basis work of each cycle runs in f32 (native-speed matmuls)
+  So the basis work of each cycle runs in f32
   while residuals, Hessenberg/Givens state, and solution updates stay
   f64; convergence is certified ONLY by the f64 true residual at
   restart boundaries (Carson-Higham GMRES-IR). Reaches the same 1e-8
-  relative residual as pure f64 at a fraction of the time.
+  relative residual as pure f64; whether it is faster than native f64
+  on a given card is a benchmark question.
 * Convergence: relative residual |g(j+1)|/β₀ with β₀ = ‖b‖ (x₀ = 0),
   gmres_hh.f90:237,339; lucky-breakdown exit on h_val < tol
   (gmres_mgsr.f90:69). `check_inner=False` reproduces the reference
@@ -94,8 +95,7 @@ def _cgs_pass(v_basis: jnp.ndarray, w: jnp.ndarray):
     """Classical Gram-Schmidt pass: h = V̄·w (one all-reduce), then
     w ← w − Vᵀh. Zero basis rows self-mask. The conjugate makes the
     same pass serve complex operators (elided for real dtypes).
-    row_contract/row_combine route TPU f64 around the slow dot
-    lowering (ops/blas.py)."""
+    row_contract/row_combine pin HIGHEST precision (ops/blas.py)."""
     h = row_contract(v_basis, w, conj=True)
     w = w - row_combine(h, v_basis)
     return h, w
@@ -678,7 +678,7 @@ def gmres(
         as b (reference-faithful). jnp.float32 with f64 b enables the
         mixed-precision iterative-refinement fast path: convergence is
         then certified by the f64 true residual at restart boundaries,
-        NOT the inner estimate — same 1e-8 answer, TPU-native speed.
+        NOT the inner estimate — same 1e-8 answer at f32 speed.
         In mixed mode the restart-boundary preconditioner application
         itself runs at work precision (on the f64-normalized residual,
         so scale invariance is exact); with certify="preconditioned"

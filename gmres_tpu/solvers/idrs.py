@@ -7,7 +7,7 @@ finite termination in at most N + N/s matvecs, with convergence that
 approaches GMRES's as s grows, at short-recurrence memory (2s+3 long
 vectors).
 
-TPU shape: the s-dimensional shadow space makes the hot reductions
+Device shape: the s-dimensional shadow space makes the hot reductions
 BLOCK-shaped — (P, r) and (P, g) are (s, n)·(n,) matmuls, ONE fused
 all-reduce for s dot products (the same basis-block trick as
 block_gmres/lobpcg) where BiCGSTAB reduces scalars one or two at a
@@ -130,7 +130,7 @@ def idrs(
             act = (rows >= k) & (cols >= k)
             m_masked = jnp.where(act, m_mat, jnp.eye(s, dtype=dtype))
             f_masked = jnp.where(jnp.arange(s) >= k, f, 0.0)
-            c = solve_small(m_masked, f_masked)  # TPU: no f64 LU
+            c = solve_small(m_masked, f_masked)  # pure-jnp LU (ops/tri.py)
             v = r - jnp.tensordot(c, g_blk, axes=(0, 0))
             v = m_apply(v)
             u_k = jnp.tensordot(c, u_blk, axes=(0, 0)) + om * v

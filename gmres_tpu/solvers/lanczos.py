@@ -7,7 +7,7 @@ SURVEY §2 C10). BASELINE.json makes it a build requirement, so here it
 is for real: k-step Lanczos tridiagonalization with the extreme Ritz
 values as bounds, plus a cheap power-iteration λ_max estimate.
 
-TPU shape: the k-step loop is a ``lax.fori_loop`` of operator
+Device shape: the k-step loop is a ``lax.fori_loop`` of operator
 applications + 2 all-reduces per step over sharded vectors; the (k, k)
 tridiagonal eigenproblem is replicated host-side math via
 ``jnp.linalg.eigh`` on a tiny matrix.
@@ -147,8 +147,7 @@ def arnoldi_expand(
 
         def cgs_pass(w):
             # conj for complex bases (identity for real): h = ⟨vᵢ, w⟩
-            # (row_contract/row_combine: TPU-f64-safe routing,
-            # ops/blas.py)
+            # (row_contract/row_combine, ops/blas.py)
             h = row_contract(basis, w, conj=True) * mask
             return h, w - row_combine(h, basis)
 
@@ -214,8 +213,8 @@ def arnoldi_ritz_values(
     steps: int = 20,
 ):
     """Complex Ritz values (numpy array, host-side) of A from k-step
-    Arnoldi. The (k, k) nonsymmetric eigenproblem has no TPU lowering,
-    so it is solved on host — a tiny setup-time cost."""
+    Arnoldi. The (k, k) nonsymmetric eigenproblem is solved on host
+    (numpy) — a tiny setup-time cost."""
     import numpy as np
 
     h = np.asarray(arnoldi_hessenberg(A, probe, steps))[:steps, :steps]

@@ -11,7 +11,7 @@ z_i = x_i − x_{i−1} to each new Krylov space, approximately restoring
 the information the restart discarded; small k (2-3) with modest m
 typically tracks full GMRES convergence where GMRES(m) stagnates.
 
-TPU design notes (same playbook as fgmres.py, whose flexible-Arnoldi
+Design notes (same playbook as fgmres.py, whose flexible-Arnoldi
 cycle this generalizes):
 
 * One cycle = m Krylov steps followed by up to k augmentation steps in
@@ -74,7 +74,7 @@ def lgmres(
         ``aug=0`` is exactly restarted FGMRES.
       M: right preconditioner (may be nonlinear / iteration-varying,
         same contract as :func:`gmres_tpu.fgmres`).
-      inner_dtype: work dtype for the cycle (float32 = TPU fast path);
+      inner_dtype: work dtype for the cycle (float32 = fast path);
         convergence is then certified on the f64 true residual.
       compute_v_err: orthogonality audit of the last cycle's V basis.
     """

@@ -8,7 +8,7 @@ eigenpairs of an SPD operator, preconditioned, to solver accuracy
 (Knyazev 2001, locally optimal block preconditioned conjugate
 gradient).
 
-Why LOBPCG and not Lanczos for the TPU build: Lanczos is a scalar
+Why LOBPCG and not Lanczos on an accelerator: Lanczos is a scalar
 three-term recurrence — one matvec, two dots, strictly sequential.
 LOBPCG is a BLOCK method: one iteration applies the operator to 3k
 stacked vectors in a single batched dispatch, forms one (3k, 3k) Gram
@@ -126,8 +126,8 @@ def lobpcg(
     threshold per pair by its own eigenvalue, the right knob when the
     wanted eigenvalues carry a grid factor (Poisson λ₁ = 2π²h²:
     demanding 1e-8 ABSOLUTE at 1024² means 5e-4 RELATIVE and slowed
-    the recorded TPU run past its iteration cap at eigenvalues already
-    accurate to 6e-9 — artifacts/eig_tpu.jsonl, round 3).
+    an earlier recorded run past its iteration cap at eigenvalues
+    already accurate to 6e-9).
 
     guard: extra trailing pairs computed but not returned (standard
     LOBPCG practice): the LAST pair's residual converges an order or

@@ -18,7 +18,7 @@ Beyond-reference component: the reference's operators are all square
 (src/interfaces.f90:12-18); this covers the rectangular/rank-deficient
 problem class.
 
-TPU shape: one ``lax.while_loop``; per iteration two long-vector
+Device shape: one ``lax.while_loop``; per iteration two long-vector
 operator applications (A, Aᴴ) and two norm reductions; the double
 QR (Q against the bidiagonal, Q̄ against R) and the residual-estimate
 rotations (Fong-Saunders §5.1-5.3) are all replicated scalars.

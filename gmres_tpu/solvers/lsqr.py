@@ -16,7 +16,7 @@ world would require hand-maintaining a second Fortran routine per
 operator. For complex operators the ADJOINT (conjugate transpose) is
 the composition conj ∘ transpose ∘ conj, handled here.
 
-TPU shape: one ``lax.while_loop``; two long-vector operator
+Device shape: one ``lax.while_loop``; two long-vector operator
 applications (A, Aᴴ) and two norm reductions per iteration; all
 rotation scalars replicated and real. Per-iteration recurrences touch
 4 long vectors (u, v, w, x).

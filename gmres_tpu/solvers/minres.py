@@ -11,7 +11,7 @@ tridiagonalization plus a running Givens QR of T, minimizing ‖b − Ax‖₂
 over the Krylov space with O(1) vectors and ONE fused all-reduce point
 per iteration.
 
-TPU shape, same design rules as CG (solvers/cg.py):
+Device shape, same design rules as CG (solvers/cg.py):
 
 * one ``lax.while_loop``; every carried quantity is either a pytree
   vector (7 long vectors) or a replicated scalar;

@@ -32,7 +32,7 @@ CONSTRUCTORS can build the exact transpose
 passed here as ``MT=``; or use a transposable M (polynomial/Chebyshev
 application loops are Python-unrolled and transpose mechanically).
 
-TPU shape: one ``lax.while_loop``; per iteration 2 long-vector
+Device shape: one ``lax.while_loop``; per iteration 2 long-vector
 operator applications (A p, Aᵀ q) and 3 reduction phases (δ = wᵀv;
 ε = qᵀAp; the fused ρ/ξ/‖r‖ norm group); 9 long vectors carried.
 

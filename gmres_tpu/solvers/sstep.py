@@ -2,8 +2,7 @@
 
 Standard GMRES pays 1-2 all-reduces per Arnoldi step (SURVEY §3.1-3.2:
 every projection is a dot); on a multi-chip mesh the solve is
-latency-bound by those collectives, and over a remote tunnel each
-reduction is a round trip. The s-step reformulation does a whole cycle
+latency-bound by those collectives. The s-step reformulation does a whole cycle
 with TWO reduction points:
 
   1. generate the monomial Krylov block Z = [z₀, Bz₀, …, B^s z₀] with
@@ -72,7 +71,7 @@ def sstep_gmres(
         x₀ = 0, matching gmres()'s criterion so results compare 1:1.
       M: left preconditioner; strongly recommended (see docstring).
       inner_dtype: dtype for the Krylov block generation (float32 for
-        the TPU fast path); the Gram solve, x updates and residual
+        the fast path); the Gram solve, x updates and residual
         certification always run in b's dtype.
       rel_ridge: Tikhonov ridge relative to the equilibrated Gram's
         unit diagonal. 0 (default) selects 100·eps(work dtype) — the

@@ -8,7 +8,7 @@ quasi-minimization — per full iteration the SAME budget as BiCGSTAB
 by orders of magnitude on stiff spectra (those spikes are what feeds
 its attainable-accuracy drift — solvers/bicgstab.py docstring).
 
-TPU shape (house rules): one ``lax.while_loop``, both half-steps of
+Device shape (house rules): one ``lax.while_loop``, both half-steps of
 Freund's iteration unrolled in the body (fixed two matvecs per trip),
 all scalars replicated, two reduction points per half-step with the
 even half's ‖w‖ and ρ fused into one all-reduce (batched_vdot).

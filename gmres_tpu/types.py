@@ -188,7 +188,7 @@ class BlockSolveResult:
     No reference counterpart (the reference is single-RHS throughout,
     src/interfaces.f90:12-18); block solvers exist here because a block
     of s right-hand sides turns the HBM-bound basis streaming into
-    MXU-batched matmuls (docs/DESIGN.md §4c).
+    batched matmuls (docs/DESIGN.md §4c).
 
     Attributes:
       x: (s, *shape) stacked solutions.

@@ -127,12 +127,14 @@ int64_t krylov_ref_pcg(int64_t n, const double* b, double* x, double tol,
 // Chebyshev-preconditioned restarted Householder GMRES(m) on the n×n
 // Poisson stencil: Walker-'84 sequential reflector sweeps (the
 // reference's hot loop shape), Givens QR of H, back-substitution,
-// reflector-based solution update. Relative criterion |g(j+1)|/||b||.
+// reflector-based solution update. Relative criterion |g(j+1)|/||b||,
+// or with certify_true the TRUE residual ||b - A x||/||b|| checked after
+// every full m-step cycle (gmres(certify="true") semantics).
 // Returns total inner iterations; fills *out_restarts, *out_res.
 int64_t krylov_ref_hh_gmres(int64_t n, const double* b, double* x,
                             int64_t m, double tol, int64_t max_restarts,
                             double lo, double hi, int64_t* out_restarts,
-                            double* out_res) {
+                            double* out_res, int64_t certify_true) {
   const int64_t nn = n * n;
   const Cheb M(lo, hi);
   std::vector<double> P((m + 1) * nn), w(nn), z(nn), aux(nn), v(nn);
@@ -221,7 +223,7 @@ int64_t krylov_ref_hh_gmres(int64_t n, const double* b, double* x,
       k = j + 1;
       ++total_iters;
       rel = std::fabs(g[j + 1]) / beta0;
-      if (rel < tol) converged = true;
+      if (!certify_true && rel < tol) converged = true;
     }
     // Back-substitution H y = g.
     for (int64_t i = k - 1; i >= 0; --i) {
@@ -240,6 +242,13 @@ int64_t krylov_ref_hh_gmres(int64_t n, const double* b, double* x,
     }
 #pragma omp parallel for schedule(static)
     for (int64_t i = 0; i < nn; ++i) x[i] += w[i];
+    if (certify_true) {
+      stencil(x, w.data(), n);
+#pragma omp parallel for schedule(static)
+      for (int64_t i = 0; i < nn; ++i) z[i] = b[i] - w[i];
+      rel = std::sqrt(dot(z.data(), z.data(), nn)) / beta0;
+      converged = rel < tol;
+    }
     if (converged) {
       ++st;
       break;

@@ -60,7 +60,7 @@ def load(threads: Optional[int] = None) -> ctypes.CDLL:
         lib.krylov_ref_pcg.restype = i64
         lib.krylov_ref_hh_gmres.argtypes = [
             i64, dp, dp, i64, ctypes.c_double, i64, ctypes.c_double,
-            ctypes.c_double, ctypes.POINTER(i64), dp,
+            ctypes.c_double, ctypes.POINTER(i64), dp, i64,
         ]
         lib.krylov_ref_hh_gmres.restype = i64
         _LIB = lib
@@ -101,9 +101,11 @@ def pcg(
 def hh_gmres(
     n: int, b: np.ndarray, m: int = 50, tol: float = 1e-8,
     max_restarts: int = 1000, lo: float = 0.2, hi: float = 8.2,
-    threads: Optional[int] = None,
+    threads: Optional[int] = None, certify_true: bool = False,
 ):
-    """Returns (x, total_iterations, restarts, final_rel_res)."""
+    """Returns (x, total_iterations, restarts, final_rel_res).
+    certify_true: stop on the true residual after full cycles, as
+    ``gmres(certify="true")`` does."""
     lib = load(threads)
     b = np.ascontiguousarray(b, dtype=np.float64).reshape(-1)
     x = np.zeros_like(b)
@@ -111,6 +113,6 @@ def hh_gmres(
     restarts = ctypes.c_int64(0)
     it = lib.krylov_ref_hh_gmres(
         n, _as_ptr(b), _as_ptr(x), m, tol, max_restarts, lo, hi,
-        ctypes.byref(restarts), ctypes.byref(res),
+        ctypes.byref(restarts), ctypes.byref(res), int(certify_true),
     )
     return x, int(it), int(restarts.value), float(res.value)

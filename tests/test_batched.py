@@ -1,7 +1,7 @@
 """Batched solves: every solver is a pure function of pytrees, so
 ``jax.vmap`` turns it into a batched solver for free — many right-hand
 sides (or many grids of the same size) solved in one compiled program,
-with all the vector work batched onto the MXU/VPU. The reference would
+with all the vector work batched. The reference would
 need an outer Fortran loop per system."""
 
 import jax

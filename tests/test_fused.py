@@ -1,17 +1,11 @@
-"""Fused Pallas kernels (interpret mode on CPU) vs their jnp oracles,
-and the fused distributed Chebyshev preconditioner."""
+"""The fused distributed Chebyshev preconditioner (one halo exchange and
+one pass per cbpr2 application) against the single-device forms."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 import gmres_tpu as gt
-from gmres_tpu.ops.fused import (
-    axpy_dot,
-    cg_fused_update,
-    chebyshev_poisson_fused,
-    chebyshev_ref_scalars,
-)
 from gmres_tpu.parallel.halo import (
     halo_chebyshev_preconditioner,
     halo_poisson_operator,
@@ -25,39 +19,6 @@ def _rand(shape, seed, dtype=np.float32):
     )
 
 
-def test_cg_fused_update():
-    x, r, p, ap = (_rand((16, 128), s) for s in range(4))
-    alpha = 0.37
-    x2, r2, rsq = cg_fused_update(x, r, p, ap, alpha, interpret=True)
-    np.testing.assert_allclose(x2, x + alpha * p, rtol=1e-4, atol=1e-6)
-    np.testing.assert_allclose(r2, r - alpha * ap, rtol=1e-4, atol=1e-6)
-    np.testing.assert_allclose(
-        rsq, jnp.sum((r - alpha * ap) ** 2), rtol=1e-4
-    )
-
-
-def test_axpy_dot():
-    x, y, z = (_rand((8, 128), s + 10) for s in range(3))
-    alpha = -1.25
-    yn, d = axpy_dot(alpha, x, y, z, interpret=True)
-    np.testing.assert_allclose(yn, y + alpha * x, rtol=1e-4, atol=1e-6)
-    np.testing.assert_allclose(d, jnp.sum((y + alpha * x) * z), rtol=1e-4)
-
-
-def test_chebyshev_fused_matches_reference_form():
-    """Fused z = r/d + α(r − A(r)/d) equals the reference composition
-    z = r/d; z += α(r − A(z)) (chebyshev.f90:27-37) by linearity."""
-    n = 32
-    r = _rand((n, n), 42)
-    op = gt.poisson_operator(n)
-    m_ref = gt.chebyshev_preconditioner(op, 0.2, 8.2)
-    z_ref = m_ref(r.astype(jnp.float64))
-    d, alpha = chebyshev_ref_scalars(0.2, 8.2)
-    zero = jnp.zeros((1, n), dtype=r.dtype)
-    z = chebyshev_poisson_fused(r, zero, zero, d, alpha, interpret=True)
-    np.testing.assert_allclose(z, z_ref, rtol=2e-5, atol=2e-6)
-
-
 def test_halo_chebyshev_preconditioner_jnp():
     mesh = solver_mesh(8)
     n = 32
@@ -67,19 +28,6 @@ def test_halo_chebyshev_preconditioner_jnp():
     z_ref = gt.chebyshev_preconditioner(gt.poisson_operator(n), 0.2,
                                         8.2)(r)
     np.testing.assert_allclose(z, z_ref, rtol=1e-13)
-
-
-def test_halo_chebyshev_preconditioner_pallas_interpret():
-    mesh = solver_mesh(8)
-    n = 32
-    r = _rand((n, n), 8)
-    m_dist = halo_chebyshev_preconditioner(
-        mesh, 0.2, 8.2, use_pallas=True, interpret=True
-    )
-    z = m_dist(shard_grid_vector(r, mesh))
-    z_ref = gt.chebyshev_preconditioner(gt.poisson_operator(n), 0.2,
-                                        8.2)(r.astype(jnp.float64))
-    np.testing.assert_allclose(z, z_ref, rtol=2e-5, atol=2e-6)
 
 
 def test_fused_preconditioner_drives_solver():

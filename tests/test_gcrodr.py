@@ -126,7 +126,7 @@ def test_sharded_parity():
 
 
 def test_subspace_deflation_matches_eig_quality():
-    """deflation="subspace" (the complex-free TPU route) must solve
+    """deflation="subspace" (the complex-free route) must solve
     the same sequence workload in a comparable iteration budget to the
     exact eig extraction."""
     n = 64

@@ -173,7 +173,7 @@ def test_max_restarts_status():
 
 
 def test_subspace_deflation_matches_eig_quality():
-    """deflation="subspace" (the complex-free TPU route) converges in
+    """deflation="subspace" (the complex-free route) converges in
     a comparable cycle count to the exact eig extraction on the
     small-eigenvalue-dominated workload GMRES-DR exists for."""
     n = 48

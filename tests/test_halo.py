@@ -42,15 +42,18 @@ def test_halo_general_coefs(mesh):
     )
 
 
-def test_halo_pallas_interpret(mesh):
-    """Pallas per-shard kernel inside shard_map (interpret on CPU)."""
-    n = 32
-    rng = np.random.default_rng(2)
-    x = jnp.asarray(rng.standard_normal((n, n)).astype(np.float32))
-    op = halo_poisson_operator(mesh, use_pallas=True, interpret=True)
-    y = op(shard_grid_vector(x, mesh))
+@pytest.mark.parametrize("n_devices", [2, 4, 8])
+def test_halo_general_coefs_device_counts(n_devices):
+    """The jnp halo operator with general (convection-diffusion)
+    coefficients on 2, 4 and 8 virtual devices."""
+    mesh_n = solver_mesh(n_devices)
+    n = 8 * n_devices
+    coefs = convection_diffusion_coefs(0.4, 0.2)
+    x = jnp.asarray(np.random.default_rng(n_devices).standard_normal((n, n)))
+    y = jax.jit(halo_stencil_operator(mesh_n, coefs))(
+        shard_grid_vector(x, mesh_n))
     np.testing.assert_allclose(
-        y, gt.poisson_apply(x), rtol=1e-5, atol=1e-5
+        y, convection_diffusion_apply(x, 0.4, 0.2), rtol=1e-13
     )
 
 

@@ -1,8 +1,7 @@
 """Split-complex Helmholtz (models/helmholtz.py:helmholtz_split_operator
-+ the layout="split" CSL cycle). The TPU route for the complex class —
-this v5e runtime has no complex datapath (c128 fails to compile, c64
-fails at run time) — pinned here against the c128 oracles on the CPU
-mesh."""
++ the layout="split" CSL cycle). The route for the complex class on
+runtimes without a complex datapath — pinned here against the c128
+oracles on the CPU mesh."""
 
 import jax
 import jax.numpy as jnp
@@ -45,7 +44,7 @@ def test_split_csl_cycle_matches_complex():
 
 def test_split_gmres_solves_the_complex_system():
     """REAL f64 GMRES on the real-equivalent system + split CSL cycle
-    reproduces the complex-path solve (the TPU production form)."""
+    reproduces the complex-path solve (the split production form)."""
     n, kh2 = 64, 0.25
     op_c = gt.helmholtz_operator(n, kh2)
     op_s = gt.helmholtz_split_operator(n, kh2)

@@ -1,7 +1,8 @@
 """Tests for the in-jit small dense nonsymmetric eigensolver.
 
 Oracle: ``numpy.linalg.eig`` (LAPACK) on the host — the very routine
-that has no TPU lowering and whose absence this module exists to fill.
+that is a CPU-only callback and whose absence on the device this module
+exists to fill.
 Eigenvalue sets are compared by greedy nearest matching (complex
 conjugate ordering differs between implementations).
 """

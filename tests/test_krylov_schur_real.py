@@ -63,8 +63,8 @@ def test_poisson_lm_matches_closed_form():
 
 def test_convdiff_clustered_complex_pairs_vs_dense():
     """The convection-dominated regime whose CLUSTERED moduli defeat
-    subspace iteration (artifacts/eig_tpu.jsonl records 17-50%
-    eigenvalue errors there): the real-Schur Krylov route must reach
+    subspace iteration (17-50% eigenvalue errors were recorded
+    there): the real-Schur Krylov route must reach
     the same certified accuracy as the complex-basis solver."""
     n = 16
     a = np.asarray(convection_diffusion_matrix(n, 2.0, 0.5))

@@ -235,8 +235,8 @@ class TestConvDiffMG:
     def test_high_peclet_upwind_coarsening_continues(self):
         """Convection-dominated levels rediscretize UPWIND instead of
         stopping the hierarchy (round 2 stopped at |2γ| ≥ 1, leaving a
-        2-level cycle whose weak coarse solve caused the 1024²
-        BiCGSTAB attainable-accuracy failure in convdiff_tpu.jsonl)."""
+        2-level cycle whose weak coarse solve caused a 1024²
+        BiCGSTAB attainable-accuracy failure)."""
         from gmres_tpu.precond.multigrid import (
             convection_diffusion_multigrid_preconditioner,
         )
@@ -277,8 +277,7 @@ class TestConvDiffMG:
         manufactured solution despite a converged recurrence
         (attainable-accuracy drift). The deep upwind hierarchy keeps
         the preconditioned system well-conditioned enough that the
-        certified TRUE residual meets tol. 256² here for test time;
-        the 512²/1024² rows are re-recorded in convdiff_tpu.jsonl."""
+        certified TRUE residual meets tol. 256² here for test time."""
         from gmres_tpu.precond.multigrid import (
             convection_diffusion_multigrid_preconditioner,
         )

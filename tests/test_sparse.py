@@ -89,18 +89,6 @@ def test_bsr_jnp_spmv(dense):
     )
 
 
-def test_bsr_pallas_interpret():
-    """Pallas BSR kernel vs jnp path (interpret mode on CPU; the
-    compiled path is exercised on real TPU by the benchmarks)."""
-    n, bs = 64, 8
-    rng = np.random.default_rng(7)
-    dense = _random_sparse(rng, n, density=0.15).astype(np.float32)
-    a = sp.bsr_from_dense(dense, block_size=bs)
-    x = jnp.asarray(rng.standard_normal(n).astype(np.float32))
-    y = sp.bsr_spmv_pallas(a, x, interpret=True)
-    np.testing.assert_allclose(y, dense @ np.asarray(x), rtol=1e-4)
-
-
 def test_sparse_operator_in_gmres():
     """CSR operator drives the full GMRES path end-to-end."""
     n = 10
@@ -254,11 +242,23 @@ def test_coo_to_hyb():
     )
 
 
+def test_bsr_spmv_f32_matches_dense():
+    """The jnp BSR SpMV in f32 (the block matvec pins no precision on
+    CPU; GPU f32 runs are covered by the same einsum)."""
+    n, bs = 64, 8
+    rng = np.random.default_rng(7)
+    dense = _random_sparse(rng, n, density=0.15).astype(np.float32)
+    a = sp.bsr_from_dense(dense, block_size=bs)
+    x = jnp.asarray(rng.standard_normal(n).astype(np.float32))
+    y = sp.bsr_spmv(a, x)
+    np.testing.assert_allclose(y, dense @ np.asarray(x), rtol=1e-4,
+                               atol=1e-5)
+
+
 @pytest.mark.parametrize("offsets_case", ["narrow", "wide", "exact128"])
-def test_dia_pallas_interpret(offsets_case):
-    """Pallas DIA kernel vs dense oracle (interpret mode on CPU),
-    covering lane-only shifts, row+lane shifts, and offsets landing
-    exactly on the 128 lane boundary."""
+def test_dia_spmv_dense_oracle(offsets_case):
+    """Shift-based DIA SpMV vs the dense oracle: short offsets, long
+    offsets, and offsets on multiples of 128."""
     rng = np.random.default_rng(24)
     n = 700
     offs = {
@@ -272,34 +272,19 @@ def test_dia_pallas_interpret(offsets_case):
     a = sp.dia_from_dense(dense)
     assert a.offsets == tuple(sorted(offs))
     x = jnp.asarray(rng.standard_normal(n))
-    y = sp.dia_spmv_pallas(a, x, interpret=True)
-    np.testing.assert_allclose(y, dense @ np.asarray(x), rtol=1e-11)
+    np.testing.assert_allclose(sp.dia_spmv(a, x), dense @ np.asarray(x),
+                               rtol=1e-11, atol=1e-12)
 
 
-def test_dia_pallas_poisson_multiblock():
-    """Grid spans multiple row blocks: block-halo windows, the
-    neighbor-block index maps, and the cross-block carry rows are all
-    exercised (block_rows forced — the auto sizing would cover 8100
-    elements with a single 64-row block and leave the multi-block
-    paths untested)."""
-    n = 90
+@pytest.mark.parametrize("n", [90, 160])
+def test_dia_spmv_poisson_sizes(n):
+    """Poisson DIA at the grid sizes that once spanned several row
+    blocks of the removed tiled kernel."""
     a = sp.poisson_dia(n)
-    x = jnp.asarray(
-        np.random.default_rng(25).standard_normal((n, n))
-    )
-    y = sp.dia_spmv_pallas(a, x.reshape(-1), interpret=True,
-                           block_rows=32)  # 8100/(32*128) → 2 blocks
+    x = jnp.asarray(np.random.default_rng(n).standard_normal((n, n)))
     np.testing.assert_allclose(
-        y, gt.poisson_apply(x).reshape(-1), rtol=1e-12
-    )
-    # and a 5-block case with offsets crossing several block widths
-    n2 = 160  # 25600 elems / (5*... ) — block_rows=40 → 5 blocks
-    a2 = sp.poisson_dia(n2)
-    x2 = jnp.asarray(np.random.default_rng(26).standard_normal((n2, n2)))
-    y2 = sp.dia_spmv_pallas(a2, x2.reshape(-1), interpret=True,
-                            block_rows=40)
-    np.testing.assert_allclose(
-        y2, gt.poisson_apply(x2).reshape(-1), rtol=1e-12
+        sp.dia_spmv(a, x.reshape(-1)), gt.poisson_apply(x).reshape(-1),
+        rtol=1e-12, atol=1e-12,
     )
 
 

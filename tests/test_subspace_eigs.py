@@ -1,5 +1,5 @@
 """Real subspace-iteration eigensolver (solvers/subspace_eigs.py) —
-the complex-free TPU route for dominant nonsymmetric eigenpairs.
+the complex-free route for dominant nonsymmetric eigenpairs.
 Oracles: the closed-form convection-diffusion tensor spectrum and
 numpy.linalg.eig on the dense assembly."""
 
